@@ -1,0 +1,181 @@
+"""Pending-insertion side index: multi-round insertion buffering
+(counterpart of ropebwt2_tpu/index/pending.py, whose module docstring
+holds the derivation).
+
+The base buffer and its rank table stay frozen for R rounds while each
+round's insertions merge into a sorted side index; rank queries against
+the virtual (base + pending) sequence are answered as
+
+    rank_virtual(g) = rank_base(g - p) + pending_prefix(p),
+    p = |{ i : vp[i] < g }|,
+
+and every R rounds the whole set is flushed into the base with one merge.
+
+State (all on the device, static capacity pcap):
+
+* ``vp``   int64[pcap] virtual positions, strictly increasing; INF beyond p
+* ``psym`` int8[pcap]  inserted symbols; PAD beyond p
+* ``blk_prefix`` int32[pcap//KP+1, 6] per-symbol prefix counts at every
+  KP-row boundary of psym
+* ``p``    int64 0-dim live count
+"""
+
+import dataclasses
+
+import torch
+
+from ..alphabet import NSYM
+from .flat import PAD
+from .rank import block_counts, prefix_rows
+from . import pending_cuda
+
+KP = 128  # pending rank-table block size
+# empty-row sentinel, the JAX package's _inf(int64): headroom keeps
+# INF + a round's shift from overflowing before the clamp
+INF = (1 << 63) - 1 - (1 << 28)
+
+
+@dataclasses.dataclass
+class PendingIndex:
+    vp: torch.Tensor  # int64[pcap]
+    psym: torch.Tensor  # int8[pcap]
+    blk_prefix: torch.Tensor  # int32[pcap // KP + 1, 6]
+    p: torch.Tensor  # int64 0-dim
+
+    @property
+    def cap(self) -> int:
+        return self.vp.shape[0]
+
+
+def pending_cap(max_rows_per_round: int, R: int) -> int:
+    """Static pending capacity for R rounds of <= max_rows_per_round
+    insertions: a multiple of 256, and of 131072 once that large (the same
+    capacities as the JAX package)."""
+    need = max(max_rows_per_round * R, 256)
+    if need >= (1 << 17):
+        return -(-need // (1 << 17)) * (1 << 17)
+    return -(-need // 256) * 256
+
+
+def empty_pending(pcap: int, device) -> PendingIndex:
+    if pcap % 256:
+        raise ValueError(f"pending capacity {pcap} is not a multiple of 256")
+    return PendingIndex(
+        vp=torch.full((pcap,), INF, dtype=torch.int64, device=device),
+        psym=torch.full((pcap,), PAD, dtype=torch.int8, device=device),
+        blk_prefix=torch.zeros((pcap // KP + 1, NSYM), dtype=torch.int32,
+                               device=device),
+        p=torch.zeros((), dtype=torch.int64, device=device),
+    )
+
+
+def reset_pending(pend: PendingIndex) -> PendingIndex:
+    return empty_pending(pend.cap, pend.vp.device)
+
+
+def pending_rank(pend: PendingIndex, g):
+    """(p, occ): p[q] = |{ i : vp[i] < g[q] }| and occ[q, s] = the count of
+    symbol s among those rows (int32).  One searchsorted, then one gather
+    of the 128-row block holding the last row below g."""
+    p = torch.searchsorted(pend.vp, g.contiguous())
+    jb = (p - 1).clamp(min=0) // KP
+    srows = pend.psym.view(-1, KP)[jb]  # (Q, KP)
+    row = jb[:, None] * KP + torch.arange(KP, device=g.device)[None, :]
+    below = row < p[:, None]
+    sym = torch.arange(NSYM, dtype=srows.dtype, device=g.device)
+    eq = (srows[:, :, None] == sym[None, None, :]) & below[:, :, None]
+    occ = pend.blk_prefix[jb] + eq.sum(dim=1, dtype=torch.int32)
+    return p, occ
+
+
+def rank_virtual_base(base_rank_fn, pend: PendingIndex, g):
+    """6-symbol rank of the virtual (base + pending) sequence at ``g``, with
+    the base answered by base_rank_fn(pos) -> (Q, 6)."""
+    p, extra = pending_rank(pend, g)
+    base = base_rank_fn(g - p)
+    return base + extra.to(base.dtype)
+
+
+def pending_add(pend: PendingIndex, gX, sym, stream, active) -> PendingIndex:
+    """Merge one round's insertions into the pending set.
+
+    gX/stream: int64[M] old-coordinate insertion points and tie ranks (tie
+    ranks unique in [0, A) over the A active rows); sym: int64[M];
+    active: bool[M].  The old rows and the row counts come from the
+    pending merge kernel (pending_cuda.merge), whose plain version is
+    merge_rows below."""
+    varr, sarr, start_new, p_after = new_rows(pend, gX, sym, stream, active)
+    vp, psym, rows = pending_cuda.merge(
+        pend.vp, pend.psym, varr, sarr, start_new, p_after
+    )
+    return PendingIndex(vp=vp, psym=psym,
+                        blk_prefix=prefix_rows(rows, torch.int32), p=p_after)
+
+
+def new_rows(pend: PendingIndex, gX, sym, stream, active):
+    """The pending merge's inputs besides the old planes: (varr, sarr,
+    start_new, p_after).  New row r lands at merged slot stream[r] + k[r]
+    with k[r] = |{ i : vp[i] < gX[r] }| (the JAX package's proof), where
+    varr holds its virtual position gX + stream and sarr its symbol + 1;
+    start_new is the exclusive prefix of new rows per kernel block,
+    counted from the M rows rather than from the pcap slots."""
+    pcap = pend.cap
+    dev = pend.vp.device
+    k = torch.searchsorted(
+        pend.vp, torch.where(active, gX, INF).contiguous()
+    )
+    slot = torch.where(active, stream + k, pcap)  # pcap: trash slot
+    sarr = torch.zeros(pcap + 1, dtype=torch.int8, device=dev)
+    sarr.scatter_(0, slot, torch.where(active, sym + 1, 0).to(torch.int8))
+    varr = torch.zeros(pcap + 1, dtype=torch.int64, device=dev)
+    varr.scatter_(0, slot, gX + stream)
+    nb = -(-pcap // pending_cuda.BS)
+    blk = torch.zeros(nb + 1, dtype=torch.int64, device=dev)
+    blk.index_add_(0, torch.where(active, slot // pending_cuda.BS, nb),
+                   torch.ones_like(slot))
+    start_new = torch.cat([blk.new_zeros(1), torch.cumsum(blk[:nb], 0)])
+    return varr[:pcap], sarr[:pcap], start_new, pend.p + active.sum()
+
+
+def merge_rows(vp, psym, varr, sarr, start_new, p_after):
+    """Plain version of the pending merge kernel: the JAX package's XLA
+    ladder.  New slots (sarr != 0) take (varr, sarr - 1); old rows shift by
+    s (the count of new rows before them), are clamped to INF, and move
+    to their merged slot by a log-shift expand.  Returns (vp, psym,
+    row_counts int32[pcap // KP, 6]), as pending_cuda.merge does from the
+    same arguments.  ``start_new`` and ``p_after`` are unused: the expand
+    needs no block prefix, and rows past p_after come out INF/PAD from it.
+    """
+    del start_new, p_after
+    pcap = vp.shape[0]
+    dev = vp.device
+    is_new = sarr != 0
+    c = torch.cumsum(is_new, 0)  # new rows at or before each slot
+    # a new row at slot q has k = q - (new rows before it); s = hist of k
+    k = torch.arange(pcap, device=dev) - (c - 1)
+    hist = torch.zeros(pcap + 1, dtype=torch.int64, device=dev)
+    hist.index_add_(0, torch.where(is_new, k, pcap), torch.ones_like(k))
+    s = torch.cumsum(hist[:pcap], 0)
+    vo = (vp + s).clamp(max=INF)
+    so = psym
+    for kk in range(max(pcap.bit_length() - 1, 0), -1, -1):
+        step = 1 << kk
+        if step >= pcap:
+            continue
+        take = ((c >> kk) & 1) == 1
+        vo = torch.where(take, torch.cat([vo.new_full((step,), INF),
+                                          vo[:-step]]), vo)
+        so = torch.where(take, torch.cat([so.new_full((step,), PAD),
+                                          so[:-step]]), so)
+    new_vp = torch.where(is_new, varr, vo)
+    new_sym = torch.where(is_new, sarr - 1, so)
+    return new_vp, new_sym, block_counts(new_sym, KP)
+
+
+def pending_flush_args(pend: PendingIndex):
+    """(pos, sym, stream, valid) for the base merge: row i is an insertion
+    at base position vp[i] - i with tie rank i."""
+    iota = torch.arange(pend.cap, device=pend.vp.device)
+    valid = iota < pend.p
+    pos = torch.where(valid, pend.vp - iota, 0)
+    return pos, pend.psym.long(), iota, valid
