@@ -5,27 +5,46 @@
 
 Phases, each reported on its own line:
 
-1. device: the card's name and power limit; build both kernels from
-   ropebwt2_tpu_torch/csrc and time the build;
+1. device: the card's name and power limit; build the three kernels from
+   ropebwt2_tpu_torch/csrc (one nvcc per source, in parallel) and time it;
 2. kernel A (merge) against its plain version on the card, at the batch
    shape (cap 2^24, 2^17 insertions), at the flush shape (cap 147,062,784,
    2^20 insertions) and on a dense case;
+2b. kernel C (packed merge) against its plain version at the every-round
+   shape (cap 2^24, 2^17 insertions), on a dense case with a ragged last
+   block, and at cap 2^28 + 2^20 with 2^24 insertions (17 anchor chunks);
+   then at the capacity phase's flush shape (cap 2,246,049,792, 2^24
+   lanes of which 6 * 2^20 active, n past 2^31), where the plain version
+   would need ~72 GB,
+   against kernel A on the unpacked int8 copy with int64 tables;
 3. kernel B (pending merge) against its plain version, pcap 2^20 with
    2^17 rows per round, the pending set 0%, 30% and 90% full;
 4. small builds (4096 reads x 101 in 3 batches, so 0/1/2, defer_r 0/8):
    the card's BWT equals the CPU's byte for byte, and an LF walk from
-   every sentinel spells back the multiset of the reads;
+   every sentinel spells back the multiset of the reads; the same builds
+   on the packed tier (pack4=1) equal the CPU's packed builds and the
+   card's flat builds;
 5. the main path at the benchmark shape (2^17 coverage reads x 101, RLO,
    K = 128): one batch into an empty index, then a fresh index planned
-   for 11 batches with 8 prefill and 2 timed batches; both kernels must
-   launch.
+   for 11 batches with 8 prefill and 2 timed batches; kernels A and B
+   must launch.  The sustained regime runs again on the packed tier
+   (pack4=1), and its BWT must equal the flat run's (by md5);
+6. the capacity tier at the size of scripts/scale_run.py's runs:
+   coverage reads (seed 0, 47x, 1% errors) x 101, RLO, batches of 2^20
+   reads, pack4="auto", planned upfront for 21 batches (2,246,049,792
+   symbols, n past 2^31): packed from the first batch, R = 16, pcap 2^24.
+   counts() after every batch; packed rank equal to the int8 rank with
+   int64 tables at 2^20+ positions (every anchor boundary +-1, positions
+   past 2^31); an LF walk from 4096 sentinel rows spells reads of the
+   input; the md5 of the BWT in scale_run.py's text encoding.  Kernels B
+   and C must launch.
 
 Every comparison is exact (integer data: max_abs_err must be 0).  The
 script fails with a nonzero exit, and prints no result line, when there
 is no card, when the package is not beside it, or when any phase fails.
-The last two lines are the kernel table as JSON and then
-{"ok": true, "device": {...}}; the card's name and power limit come
-just before them.
+The last three lines are the kernel table as JSON, the card's name and
+power limit, and then
+{"ok": true, "device": {...}}.
 """
 
 import json
@@ -48,6 +67,24 @@ MERGE_CASES = (  # name, cap, insertions, live n, dense
 )
 PEND_SHAPE = (1 << 20, 1 << 17, CAP_FLUSH)  # pcap, rows per round, max vp
 SMALL = (4096, (1366, 1365, 1365))  # reads, batch sizes
+# the capacity phase: scripts/scale_run.py's configuration (SCALE4G's
+# batches of 2^20 reads), cut from 39,321,600 reads to 21 batches
+SCALE_MBATCH, SCALE_BATCHES = 1 << 20, 21
+CAP_SCALE = SCALE_BATCHES * SCALE_MBATCH * (L_BENCH + 1)  # 2,246,049,792
+SCALE_WALKS = 4096  # sentinel rows walked back to their reads
+# name, cap, insertion lanes, live n, dense, reference; the flush case
+# leaves 10 of 16 rounds' lanes inactive, as the last flush of a phase 6
+# batch (102 rounds, R = 16) does
+PACKED_CASES = (
+    ("round", 1 << 24, 1 << 17, (1 << 24) - (1 << 17) - 4097, False,
+     "plain"),
+    ("dense", (1 << 24) + 768, 1 << 17, 5_000_000, True, "plain"),
+    ("chunks", (1 << 28) + (1 << 20), 1 << 24, (1 << 28) - (1 << 24) + 777,
+     False, "plain"),
+    ("flush", CAP_SCALE, 1 << 24, CAP_SCALE - (1 << 24) - 12345, False,
+     "kernel A"),
+)
+FLUSH_ACTIVE = 6 << 20  # active lanes of the packed flush case
 
 
 def say(*a):
@@ -112,7 +149,63 @@ def max_abs_diff(a, b):
     return int((a.long() - b.long()).abs().max())
 
 
+def reset_launches():
+    """Set every kernel's launch count to 0."""
+    from ropebwt2_tpu_torch.index import (
+        merge_cuda, merge_packed_cuda, pending_cuda,
+    )
+
+    merge_cuda.LAUNCHES = 0
+    merge_packed_cuda.LAUNCHES = 0
+    pending_cuda.LAUNCHES = 0
+
+
+def read_launches():
+    from ropebwt2_tpu_torch.index import (
+        merge_cuda, merge_packed_cuda, pending_cuda,
+    )
+
+    return {"merge": merge_cuda.LAUNCHES,
+            "merge_packed": merge_packed_cuda.LAUNCHES,
+            "pending_merge": pending_cuda.LAUNCHES}
+
+
+def text_md5(bwt):
+    """md5 of a BWT in the reference's plain-text encoding ("$ACGTN"
+    characters and one trailing newline), as scripts/scale_run.py hashes
+    it."""
+    import hashlib
+
+    h = hashlib.md5()
+    lut = np.frombuffer(b"$ACGTN", dtype=np.uint8)
+    for lo in range(0, bwt.shape[0], 1 << 26):
+        h.update(lut[bwt[lo: lo + (1 << 26)]].tobytes())
+    h.update(b"\n")
+    return h.hexdigest()
+
+
 # ---------------------------------------------------------------- phase 2
+
+def insertions(gen, m, n, dense, a=None):
+    """m insertion lanes into a live prefix of n: (pos, sym, stream, valid,
+    active count).  The first ``a`` lanes (all by default) are active, the
+    rest inactive.  Dense: half of the active ones at one position, and a
+    tail of 1000 inactive lanes."""
+    import torch
+
+    dev = DEV
+    if a is None:
+        a = m - 1000 if dense else m
+    pos = torch.randint(0, n + 1, (m,), generator=gen, device=dev)
+    if dense:
+        pos[: a // 2] = n // 3
+    pos[a:] = 0
+    pos[:a] = torch.sort(pos[:a]).values
+    valid = torch.arange(m, device=dev) < a
+    stream = torch.where(valid, torch.arange(m, device=dev), 0)
+    sym = torch.randint(0, 6, (m,), generator=gen, device=dev)
+    return pos, sym, stream, valid, a
+
 
 def merge_case(gen, cap, m, n, dense, K=128):
     """Random live prefix of n symbols (garbage past it), m sorted
@@ -130,20 +223,7 @@ def merge_case(gen, cap, m, n, dense, K=128):
                         dtype=torch.int8)
     bwt[:n] = torch.randint(0, 6, (n,), generator=gen, device=dev,
                             dtype=torch.int8)
-    if dense:
-        # most insertions at one position, a tail of inactive lanes
-        a = m - 1000
-        pos = torch.randint(0, n + 1, (m,), generator=gen, device=dev)
-        pos[: a // 2] = n // 3
-        pos[a:] = 0
-        pos[:a] = torch.sort(pos[:a]).values
-    else:
-        a = m
-        pos = torch.sort(torch.randint(0, n + 1, (m,), generator=gen,
-                                       device=dev)).values
-    valid = torch.arange(m, device=dev) < a
-    stream = torch.where(valid, torch.arange(m, device=dev), 0)
-    sym = torch.randint(0, 6, (m,), generator=gen, device=dev)
+    pos, sym, stream, valid, a = insertions(gen, m, n, dense)
     nt = torch.tensor(n, dtype=torch.int64, device=dev)
 
     got, got_blk = merge_cuda.merge(bwt, pos, sym, stream, valid, nt, K)
@@ -176,6 +256,102 @@ def phase_merge(torch):
         if err != 0:
             raise AssertionError(f"merge kernel disagrees ({name})")
         out.append((name, err, ms, plain_ms))
+    return out
+
+
+# --------------------------------------------------------------- phase 2b
+
+def absolute_rows(blkA, blkB, cap, nblk):
+    """int64 per-symbol prefix at symbol rows 0..nblk-1 of two-level
+    tables (anchor + anchor-relative row), and the raw rows it used."""
+    import torch
+    from ropebwt2_tpu_torch.index.packed import LANE, blkb_row
+
+    blks = torch.arange(nblk, device=blkA.device)
+    a, b = blkA[(blks * LANE) >> 24], blkB[blkb_row(blks, cap // 256)]
+    return a + b, a, b
+
+
+def packed_case(gen, cap, m, n, dense, ref):
+    """Kernel C on a random packed buffer (live prefix of n symbols, any
+    nibble past it) with m sorted insertions, against ``ref``: the plain
+    version, or kernel A on the unpacked int8 copy with int64 tables.
+    Returns (max_abs_err, wrapper ms, reference ms, kernel-alone ms, active
+    lanes)."""
+    import torch
+    from ropebwt2_tpu_torch.index import merge_cuda, merge_packed_cuda
+    from ropebwt2_tpu_torch.index.packed import (
+        LANE, PPAD_ROWS, apply_insertions_packed, build_two_level_tables,
+        pack_bwt, unpack_bwt,
+    )
+
+    dev = DEV
+    syms = torch.randint(0, 16, (cap + 2 * LANE * PPAD_ROWS,), generator=gen,
+                         device=dev, dtype=torch.int8)
+    syms[:n] = torch.randint(0, 6, (n,), generator=gen, device=dev,
+                             dtype=torch.int8)
+    pb = pack_bwt(syms)
+    if ref == "plain":
+        del syms
+    pos, sym, stream, valid, a = insertions(
+        gen, m, n, dense, FLUSH_ACTIVE if ref != "plain" else None)
+    nt = torch.tensor(n, dtype=torch.int64, device=dev)
+    live = n + a
+    nblk = live // LANE + 1
+
+    def kern():
+        return merge_packed_cuda.merge_packed(pb, pos, sym, stream, valid,
+                                              nt, 128)
+
+    got, gA, gB = kern()
+    torch.cuda.synchronize()
+    got_abs, got_a, got_b = absolute_rows(gA, gB, cap, nblk)
+    if ref == "plain":
+        def reference():
+            new = apply_insertions_packed(pb, nt, pos, sym, stream, valid)
+            return new, *build_two_level_tables(new, cap)
+
+        want, wA, wB = reference()
+        want_abs, want_a, want_b = absolute_rows(wA, wB, cap, nblk)
+        err = max(max_abs_diff(got_a, want_a), max_abs_diff(got_b, want_b),
+                  max_abs_diff(got_abs, want_abs))
+        want = unpack_bwt(want[: -(-live // 256) * 128])[:live]
+        del wA, wB, want_abs, want_a, want_b
+    else:
+        def reference():
+            return merge_cuda.merge(syms, pos, sym, stream, valid, nt, 128)
+
+        want, want_blk = reference()
+        err = max_abs_diff(got_abs, want_blk[:nblk])
+        want = want[:live]
+        del want_blk
+    err = max(err, max_abs_diff(unpack_bwt(got[: -(-live // 256) * 128])
+                                [:live], want))
+    del got, gA, gB, got_abs, got_a, got_b, want
+    ms = time_ms(kern)
+    ref_ms = time_ms(reference)
+    kms = kernel_ms(kern, "merge_packed_kernel")
+    if ref != "plain":  # where the wrapper's time goes, at this shape
+        _, rows = profile(lambda: [kern() for _ in range(3)])
+        for name, us, calls in rows[:8]:
+            say(f"[2b]   wrapper profile: {us / 3e3:9.4f} ms/call "
+                f"{calls // 3:4d}x {name[:80]}")
+    torch.cuda.empty_cache()
+    return err, ms, ref_ms, kms, a
+
+
+def phase_packed(torch):
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    out = []
+    for name, cap, m, n, dense, ref in PACKED_CASES:
+        err, ms, ref_ms, kms, a = packed_case(gen, cap, m, n, dense, ref)
+        say(f"[2b] merge_packed {name}: cap {cap} M {m} active {a} n {n} "
+            f"reference {ref} max_abs_err {err} (tolerance 0) wrapper "
+            f"{ms:.4f} ms "
+            f"{ref} {ref_ms:.4f} ms kernel alone {fmt_ms(kms)}")
+        if err != 0:
+            raise AssertionError(f"packed merge kernel disagrees ({name})")
+        out.append((name, err, ms, ref_ms))
     return out
 
 
@@ -265,31 +441,37 @@ def phase_small(torch, ReadGen):
     want = sorted(r[::-1].tobytes() for bt in batches for r in bt)
     for so in (0, 1, 2):
         for defer_r in (0, 8):
-            arrs = []
+            arrs = {}
             for device in (DEV, "cpu"):
-                eng = TorchBwt(so=so, defer_r=defer_r, device=device)
-                for bt in batches:
-                    eng.insert_multi(bt)
-                arrs.append(eng.bwt_array())
-            same = np.array_equal(arrs[0], arrs[1])
-            walk = lf_strings(arrs[0], nreads) == want
+                for pack4 in (0, 1):
+                    eng = TorchBwt(so=so, defer_r=defer_r, device=device,
+                                   pack4=pack4)
+                    for bt in batches:
+                        eng.insert_multi(bt)
+                    arrs[device, pack4] = eng.bwt_array()
+            same = np.array_equal(arrs[DEV, 0], arrs["cpu", 0])
+            walk = lf_strings(arrs[DEV, 0], nreads) == want
+            psame = np.array_equal(arrs[DEV, 1], arrs["cpu", 1])
+            pflat = np.array_equal(arrs[DEV, 1], arrs[DEV, 0])
+            pwalk = lf_strings(arrs[DEV, 1], nreads) == want
             say(f"[4] so {so} defer_r {defer_r}: cuda == cpu {same}, "
-                f"LF walk spells the reads {walk}")
-            if not (same and walk):
+                f"LF walk spells the reads {walk}; packed: cuda == cpu "
+                f"{psame}, == flat on the card {pflat}, LF walk {pwalk}")
+            if not (same and walk and psame and pflat and pwalk):
                 raise AssertionError(f"small build failed (so {so}, "
                                      f"defer_r {defer_r})")
 
 
 # ---------------------------------------------------------------- phase 5
 
-def report_profile(label, wall, rows, top=12):
+def report_profile(label, wall, rows, top=12, tag="[5]"):
     """Print a profiled batch's device busy time, idle share and top
     kernels; the whole table goes to smoke_out/."""
     busy = sum(r[1] for r in rows) / 1e6
-    say(f"[5] profile {label}: wall {wall:.4f} s (profiled), device busy "
+    say(f"{tag} profile {label}: wall {wall:.4f} s (profiled), device busy "
         f"{busy:.4f} s, idle share {1 - busy / wall:.3f}")
     for name, us, calls in rows[:top]:
-        say(f"[5]   {us / 1e3:10.3f} ms {100 * us / 1e6 / busy:5.1f}% "
+        say(f"{tag}   {us / 1e3:10.3f} ms {100 * us / 1e6 / busy:5.1f}% "
             f"{calls:7d}x {name[:90]}")
     out = os.path.join(HERE, "smoke_out")
     os.makedirs(out, exist_ok=True)
@@ -300,7 +482,6 @@ def report_profile(label, wall, rows, top=12):
 
 def phase_main(torch, ReadGen):
     from ropebwt2_tpu_torch.engine import TorchBwt
-    from ropebwt2_tpu_torch.index import merge_cuda, pending_cuda
 
     gen = ReadGen(seed=0, nreads=M_BENCH * (1 + PREFILL + SUSTAIN),
                   L=L_BENCH, mode="coverage", cov=47.0, err=0.01)
@@ -316,8 +497,7 @@ def phase_main(torch, ReadGen):
             raise AssertionError(f"self-check failed: counts {cnt}")
 
     torch.cuda.reset_peak_memory_stats()
-    merge_cuda.LAUNCHES = 0
-    pending_cuda.LAUNCHES = 0
+    reset_launches()
     batch_walls = []
     for _ in range(2):  # the first run includes PyTorch's lazy set-up
         eng = TorchBwt(so=1, K=128, device=DEV)
@@ -328,7 +508,7 @@ def phase_main(torch, ReadGen):
         batch_walls.append(time.perf_counter() - t0)
         check(eng, 1)
         del eng
-    batch_launches = (merge_cuda.LAUNCHES, pending_cuda.LAUNCHES)
+    batch_launches = read_launches()
     wall, rows = profile(
         lambda: TorchBwt(so=1, K=128, device=DEV).insert_multi(reads))
     report_profile("batch", wall, rows)
@@ -352,22 +532,224 @@ def phase_main(torch, ReadGen):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     check(eng, PREFILL + SUSTAIN)
-    launches = {"merge": merge_cuda.LAUNCHES, "pending": pending_cuda.LAUNCHES}
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
 
     say(f"[5] batch regime: {syms} symbols into an empty index, walls "
         f"{[round(w, 4) for w in batch_walls]} s, "
         f"{syms / min(batch_walls) / 1e6:.3f} Msym/s (best), launches "
-        f"merge {batch_launches[0]} pending {batch_launches[1]}")
+        f"{batch_launches}")
     say(f"[5] sustained regime: cap {eng.state.cap} R {defer_r} pcap {pcap}, "
         f"prefill {PREFILL - 1} batches {prefill_s:.3f} s (+1 profiled), "
         f"timed walls "
         f"{[round(w, 4) for w in walls]} s, "
         f"{syms / min(walls) / 1e6:.3f} Msym/s (best), n {eng.n}")
-    say(f"[5] launches on the main path: merge {launches['merge']} "
-        f"pending {launches['pending']}; peak device memory "
+    say(f"[5] launches on the main path: {launches}; peak device memory "
         f"{peak} B ({peak / 2**30:.3f} GiB)")
-    if launches["merge"] == 0 or launches["pending"] == 0:
+    if launches["merge"] == 0 or launches["pending_merge"] == 0:
+        raise AssertionError(f"a kernel never launched: {launches}")
+
+    # the sustained regime again on the packed tier: the same BWT
+    flat_md5 = text_md5(eng.bwt_array())
+    del eng
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    eng = TorchBwt(so=1, K=128, device=DEV, pack4=1)
+    eng._plan((PREFILL + SUSTAIN + 1) * syms)
+    p_defer, p_pcap = eng._choose_defer(M_BENCH)
+    t0 = time.perf_counter()
+    for bt in sustained_batches[:PREFILL]:
+        eng.insert_multi(bt)
+    torch.cuda.synchronize()
+    p_prefill_s = time.perf_counter() - t0
+    p_walls = []
+    for bt in sustained_batches[PREFILL:]:
+        t0 = time.perf_counter()
+        eng.insert_multi(bt)
+        torch.cuda.synchronize()
+        p_walls.append(time.perf_counter() - t0)
+    check(eng, PREFILL + SUSTAIN)
+    p_launches = read_launches()
+    p_peak = torch.cuda.max_memory_allocated()
+    packed_md5 = text_md5(eng.bwt_array())
+    p_cap = eng.state.cap
+    del eng
+    torch.cuda.empty_cache()
+    say(f"[5] sustained regime, packed tier (pack4=1): cap {p_cap} R "
+        f"{p_defer} pcap {p_pcap}, prefill {PREFILL} batches "
+        f"{p_prefill_s:.3f} s, timed walls {[round(w, 4) for w in p_walls]} "
+        f"s, {syms / min(p_walls) / 1e6:.3f} Msym/s (best) against flat "
+        f"{syms / min(walls) / 1e6:.3f} Msym/s; peak device memory {p_peak} "
+        f"B ({p_peak / 2**30:.3f} GiB) against flat {peak} B "
+        f"({peak / 2**30:.3f} GiB); launches {p_launches}")
+    say(f"[5] packed BWT == flat BWT (compared by md5 of the text "
+        f"encoding): {packed_md5 == flat_md5} ({packed_md5}, {flat_md5})")
+    if packed_md5 != flat_md5:
+        raise AssertionError("the packed tier's BWT differs from the flat's")
+    if p_launches["merge_packed"] == 0 or p_launches["pending_merge"] == 0:
+        raise AssertionError(f"a kernel never launched: {p_launches}")
+    return launches
+
+
+# ---------------------------------------------------------------- phase 6
+
+def read_hashes(mat):
+    """A 64-bit hash of every row of an (m, L) symbol matrix."""
+    m, ln = mat.shape
+    buf = np.zeros((m, -(-ln // 8) * 8), np.uint8)
+    buf[:, :ln] = mat
+    h = np.zeros(m, np.uint64)
+    for w in buf.view(np.uint64).T:
+        h = (h ^ w) * np.uint64(0x9E3779B97F4A7C15)
+    return h
+
+
+def lf_walk(torch, st, counts, rows, steps):
+    """LF walks on the card from ``rows`` of a packed index, with its
+    packed rank: the (W, steps) symbols read, 0 once a walk has reached
+    its string's sentinel."""
+    from ropebwt2_tpu_torch.index.packed import rank_global_packed
+
+    C = torch.cumsum(counts, 0) - counts
+    live = torch.ones_like(rows, dtype=torch.bool)
+    out = []
+    for _ in range(steps):
+        r0 = rank_global_packed(st.pbwt, st.blkA, st.blkB, rows)
+        s = (rank_global_packed(st.pbwt, st.blkA, st.blkB, rows + 1)
+             - r0).argmax(dim=1)
+        live &= s != 0
+        out.append(torch.where(live, s, 0))
+        rows = torch.where(live, C[s] + r0.gather(1, s[:, None])[:, 0], rows)
+    return torch.stack(out, dim=1)
+
+
+def phase_capacity(torch, ReadGen):
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ropebwt2_tpu_torch.engine import TorchBwt
+    from ropebwt2_tpu_torch.index.packed import (
+        ACHUNK, PackedFlatBwt, rank_global_packed, unpack_bwt,
+    )
+    from ropebwt2_tpu_torch.index.rank import build_block_tables, rank_global
+
+    mb, nbatch, L = SCALE_MBATCH, SCALE_BATCHES, L_BENCH
+    nreads = mb * nbatch
+    total = nreads * (L + 1)
+    say(f"[6] cut: SCALE4G_r04.json's 39,321,600 reads x {L} "
+        f"(4,010,803,200 symbols) cut to {nbatch} batches of {mb} reads: "
+        f"{nreads} reads, {total} symbols, to stay inside the time limit")
+    gen = ReadGen(seed=0, nreads=nreads, L=L, mode="coverage", cov=47.0,
+                  err=0.01)
+
+    def draw():  # the next batch and the hashes of its reads as walked
+        t0 = time.perf_counter()
+        bt = gen.batch(mb).view(np.int8)
+        return bt, read_hashes(bt[:, ::-1]), time.perf_counter() - t0
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = TorchBwt(so=1, K=128, device=DEV)  # pack4="auto"
+    eng._plan(total)
+    defer_r, pcap = eng._choose_defer(mb)
+    say(f"[6] plan: {type(eng.state).__name__} cap {eng.state.cap} R "
+        f"{defer_r} pcap {pcap}")
+    if not isinstance(eng.state, PackedFlatBwt) or eng.state.cap != CAP_SCALE:
+        raise AssertionError("the capacity plan is not packed at CAP_SCALE")
+    hashes, walls, gen_s = [], [], 0.0
+    reset_launches()
+    t_all = time.perf_counter()
+    # a host thread draws the next batch while the card builds this one
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        nxt = pool.submit(draw)
+        for i in range(nbatch):
+            bt, h, g = nxt.result()
+            gen_s += g
+            hashes.append(h)
+            if i + 1 < nbatch:
+                nxt = pool.submit(draw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if i == nbatch - 1:  # the last batch: where the time goes
+                wall, rows = profile(lambda: eng.insert_multi(bt))
+                report_profile(f"capacity batch {i + 1}", wall, rows,
+                               tag="[6]")
+            else:
+                eng.insert_multi(bt)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            cnt = eng.counts()
+            done = (i + 1) * mb
+            if int(cnt[0]) != done or int(cnt.sum()) != done * (L + 1):
+                raise AssertionError(f"self-check failed after batch "
+                                     f"{i + 1}: counts {cnt}")
+            walls.append(wall)
+            say(f"[6] batch {i + 1}: {wall:.4f} s"
+                f"{' (profiled)' if i == nbatch - 1 else ''}, n {eng.n}, "
+                f"{mb * (L + 1) / wall / 1e6:.3f} Msym/s")
+    build_s = time.perf_counter() - t_all
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    st, n = eng.state, eng.n
+    resident = st.pbwt.numel() + 8 * st.blkA.numel() + 4 * st.blkB.numel()
+    steady = walls[1:-1]
+    say(f"[6] built {n} symbols in {build_s:.3f} s (reads drawn on a host "
+        f"thread meanwhile, {gen_s:.3f} s); first batch {walls[0]:.4f} s; "
+        f"steady {mb * (L + 1) * len(steady) / sum(steady) / 1e6:.3f} "
+        f"Msym/s over batches 2-{nbatch - 1} (walls "
+        f"{min(steady):.4f}-{max(steady):.4f} s); all-in "
+        f"{n / build_s / 1e6:.3f} Msym/s")
+    say(f"[6] peak device memory {peak} B ({peak / 2**30:.3f} GiB, "
+        f"{peak / n:.4f} B/sym); resident index {resident} B "
+        f"({resident / n:.4f} B/sym: pbwt {st.pbwt.numel()} B, blkA "
+        f"{8 * st.blkA.numel()} B, blkB {4 * st.blkB.numel()} B)")
+    say(f"[6] launches on the capacity path: {launches}")
+
+    # rank: packed two-level tables against the int8 rank, int64 tables
+    g = torch.Generator(device=DEV).manual_seed(6)
+    anchors = torch.arange(1, n // ACHUNK + 1, device=DEV) * ACHUNK
+    pos = torch.cat([
+        torch.randint(0, n + 1, (1 << 20,), generator=g, device=DEV),
+        torch.randint(min(1 << 31, n), n + 1, (1 << 16,), generator=g,
+                      device=DEV),
+        anchors - 1, anchors, anchors + 1,
+        torch.tensor([0, 1, (1 << 31) - 1, 1 << 31, (1 << 31) + 1, n - 1, n],
+                     device=DEV),
+    ]).clamp(0, n)
+    flat_bwt = unpack_bwt(st.pbwt)
+    want = rank_global(flat_bwt, build_block_tables(flat_bwt, 128), pos, 128)
+    del flat_bwt
+    rank_err = max_abs_diff(
+        rank_global_packed(st.pbwt, st.blkA, st.blkB, pos), want)
+    del want
+    torch.cuda.empty_cache()
+    say(f"[6] rank: packed == int8 with int64 tables at {pos.numel()} "
+        f"positions ({anchors.numel()} anchor boundaries +-1, "
+        f"{int((pos >= 1 << 31).sum())} at or past 2^31): max_abs_err "
+        f"{rank_err} (tolerance 0)")
+
+    # LF walks from sentinel rows spell reads of the input
+    spelled = lf_walk(torch, st, torch.from_numpy(eng.counts()).to(DEV),
+                      torch.arange(SCALE_WALKS, device=DEV), L + 1)
+    spelled = spelled.cpu().numpy()
+    shaped = bool((spelled[:, :L] != 0).all() and (spelled[:, L] == 0).all())
+    table = np.sort(np.concatenate(hashes))
+    h = read_hashes(spelled[:, :L].astype(np.uint8))
+    found = int((table[np.searchsorted(table, h).clip(max=table.size - 1)]
+                 == h).sum())
+    say(f"[6] LF walk from {SCALE_WALKS} sentinel rows with the packed rank "
+        f"on the card: {L} symbols then the sentinel {shaped}; {found} of "
+        f"{SCALE_WALKS} spell a read of the input")
+
+    tm = time.perf_counter()
+    md5 = text_md5(eng.bwt_array())
+    say(f"[6] bwt md5 {md5} (scale_run.py's text encoding, no phantom "
+        f"read; {time.perf_counter() - tm:.3f} s incl. transfer)")
+    del eng, st
+    torch.cuda.empty_cache()
+    if n <= 1 << 31 or rank_err != 0 or not shaped or found != SCALE_WALKS:
+        raise AssertionError("the capacity phase failed its checks")
+    if launches["merge_packed"] == 0 or launches["pending_merge"] == 0:
         raise AssertionError(f"a kernel never launched: {launches}")
     return launches
 
@@ -405,11 +787,15 @@ def main():
                 say(f"[1] ptxas: {line.strip()}")
 
     merge_res = phase_merge(torch)
+    packed_res = phase_packed(torch)
     pend_res = phase_pending(torch)
     phase_small(torch, ReadGen)
     launches = phase_main(torch, ReadGen)
+    scale_launches = phase_capacity(torch, ReadGen)
 
-    # ms / plain_ms: merge at the batch shape, pending merge 30% full
+    # ms / plain_ms: merge and packed merge at the every-round shape,
+    # pending merge 30% full; launches: A and B on the flat main path
+    # (phase 5), C on the capacity path (phase 6)
     kernels = [{
         "name": "merge", "route": "cuda",
         "source": "ropebwt2_tpu_torch/csrc/merge.cu",
@@ -421,9 +807,16 @@ def main():
         "name": "pending_merge", "route": "cuda",
         "source": "ropebwt2_tpu_torch/csrc/pending.cu",
         "replaces": "ropebwt2_tpu/index/pending_pallas.py:279",
-        "launches": launches["pending"],
+        "launches": launches["pending_merge"],
         "max_abs_err": max(r[1] for r in pend_res),
         "ms": pend_res[1][2], "plain_ms": pend_res[1][3],
+    }, {
+        "name": "merge_packed", "route": "cuda",
+        "source": "ropebwt2_tpu_torch/csrc/merge_packed.cu",
+        "replaces": "ropebwt2_tpu/index/merge_pallas_packed.py:353",
+        "launches": scale_launches["merge_packed"],
+        "max_abs_err": max(r[1] for r in packed_res),
+        "ms": packed_res[0][2], "plain_ms": packed_res[0][3],
     }]
     say(json.dumps({"kernels": kernels}))
     say(smi)

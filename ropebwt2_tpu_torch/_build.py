@@ -1,8 +1,9 @@
 """Build and load the package's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``)
-into one shared library with a plain C interface, which ``ctypes`` loads.
-The library lives in ``_build/`` beside this file, named by a hash of the
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for Hopper
+(``sm_90a``), all started together, and the objects are linked into one
+shared library with a plain C interface, which ``ctypes`` loads.  The
+library lives in ``_build/`` beside this file, named by a hash of the
 sources and flags, so it is built once per source version, at first use
 (never at import).  The compiler's register and shared-memory report
 (``-Xptxas -v``) is kept in ``_build/<name>.log``.
@@ -20,8 +21,8 @@ from pathlib import Path
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD = _HERE / "_build"
-FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # (name, argument types) of every C entry point; each returns cudaError_t
 _P = ctypes.c_void_p
@@ -29,6 +30,8 @@ _I = ctypes.c_longlong
 ENTRY_POINTS = {
     # old, insmap, start, n, out, rows, alloc, nb, stream
     "rb2_merge": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # old, insmap, start, n, out, rows, alloc_bytes, nb, stream
+    "rb2_merge_packed": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     # vp, psym, varr, sarr, start, p_after, vp_out, psym_out, rows,
     # pcap, nb, inf, stream
     "rb2_pending_merge": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
@@ -68,16 +71,29 @@ def lib() -> ctypes.CDLL:
     path = library_path()
     if not path.exists():
         BUILD.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *FLAGS, "-o", str(tmp),
-               *[str(f) for f in sorted(CSRC.glob("*.cu"))]]
+        tag = f"{os.getpid()}.tmp"
         t0 = time.perf_counter()
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        path.with_suffix(".log").write_text(r.stdout + r.stderr)
-        if r.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({r.returncode}):\n{r.stdout}{r.stderr}")
-        os.replace(tmp, path)  # atomic: a concurrent loader sees all or none
+        srcs = sorted(CSRC.glob("*.cu"))
+        objs = [BUILD / f"{src.stem}.{tag}.o" for src in srcs]
+        procs = [subprocess.Popen(
+            [_nvcc(), *FLAGS, "-c", str(src), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(srcs, objs)]
+        outs = [p.communicate()[0] for p in procs]
+        link = None
+        if all(p.returncode == 0 for p in procs):
+            link = subprocess.run(
+                [_nvcc(), *ARCH, "-shared", "-o", str(path.with_suffix(
+                    f".{tag}")), *map(str, objs)],
+                capture_output=True, text=True)
+            outs.append(link.stdout + link.stderr)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        path.with_suffix(".log").write_text("".join(outs))
+        if link is None or link.returncode != 0:
+            raise RuntimeError("nvcc failed:\n" + "".join(outs))
+        # atomic: a concurrent loader sees all or none
+        os.replace(path.with_suffix(f".{tag}"), path)
         BUILD_SECONDS = time.perf_counter() - t0
     so = ctypes.CDLL(str(path))
     for name, argtypes in ENTRY_POINTS.items():

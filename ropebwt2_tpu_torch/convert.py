@@ -1,12 +1,14 @@
 """Carry an index across from the JAX package: its state, as numpy arrays,
 becomes the port's state on a chosen device.  The layouts match (the flat
-buffer keeps its PAD_TAIL slack), so the conversion copies the arrays and
-widens what the port keeps in int64."""
+buffer keeps its PAD_TAIL slack, the packed one its vertical plane pairs
+and two-level tables), so the conversion copies the arrays and widens
+what the port keeps in int64."""
 
 import numpy as np
 import torch
 
 from .index.flat import PAD_TAIL, FlatBwt, table_dtype
+from .index.packed import LANE, PPAD_ROWS, PackedFlatBwt
 from .index.pending import INF, PendingIndex
 
 
@@ -25,6 +27,27 @@ def flat_from_numpy(bwt, n, psize, pcounts, blk_prefix, device) -> FlatBwt:
         psize=_tensor(psize, np.int64, device),
         pcounts=_tensor(pcounts, np.int64, device),
         blk_prefix=_tensor(blk_prefix, np.int64, device).to(table_dtype(cap)),
+    )
+
+
+def packed_from_numpy(pbwt, n, psize, pcounts, blkA, blkB,
+                      device) -> PackedFlatBwt:
+    """PackedFlatBwt from the fields of the JAX package's PackedFlatBwt:
+    pbwt uint8[cap // 2 + PPAD_ROWS * 128], n, psize int[6], pcounts
+    int[6, 6] and the two-level tables blkA int64[ceil(cap / 2^24) + 1, 6]
+    and blkB int32[2 * (cap // 256) + 2, 6]."""
+    pbwt = np.asarray(pbwt, dtype=np.uint8)
+    cap = (pbwt.shape[0] - PPAD_ROWS * LANE) * 2
+    if cap <= 0 or cap % 256:
+        raise ValueError(f"packed buffer of {pbwt.shape[0]} bytes has no "
+                         "capacity that is a multiple of 256")
+    return PackedFlatBwt(
+        pbwt=_tensor(pbwt, np.uint8, device),
+        n=_tensor(n, np.int64, device),
+        psize=_tensor(psize, np.int64, device),
+        pcounts=_tensor(pcounts, np.int64, device),
+        blkA=_tensor(blkA, np.int64, device),
+        blkB=_tensor(blkB, np.int32, device),
     )
 
 

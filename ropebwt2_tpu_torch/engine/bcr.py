@@ -10,9 +10,10 @@ One round inserts the d-th symbol (from the end) of every active read:
   3. two batched 6-symbol rank queries per group (rope_rank2a)
   4. closed-form insertion points in START-OF-ROUND coordinates
      (mrope.c:204-224 made order-free)
-  5. one merge pass applying every insertion at once (kernel A), or, in
-     deferred mode, one merge into the pending side index (kernel B) with
-     a flush into the base (kernel A) every R rounds
+  5. one merge pass applying every insertion at once (kernel A on the
+     flat tier, kernel C on the packed tier), or, in deferred mode, one
+     merge into the pending side index (kernel B) with a flush into the
+     base (kernel A or C) every R rounds
   6. interval update with the cross-bucket rebase (mrope.c:332-340).
 
 The JAX package's module docstring holds the invariants that make the
@@ -30,6 +31,14 @@ import torch
 from ..alphabet import NSYM, SO_IO, SO_RCLO, SO_RLO
 from ..index.flat import FlatBwt, empty_state, grow_state
 from ..index.merge_cuda import merge
+from ..index.merge_packed_cuda import merge_packed
+from ..index.packed import (
+    PackedFlatBwt,
+    grow_packed_state,
+    packed_from_flat,
+    rank_global_packed,
+    unpack_bwt,
+)
 from ..index.pending import (
     empty_pending,
     pending_add,
@@ -42,6 +51,8 @@ from ..index.rank import rank_global
 
 I64 = torch.int64
 PLAN_ALIGN = 1 << 17  # upfront-plan capacity rounding (the JAX package's)
+PACK_ALIGN = 1 << 20  # capacity rounding of the packed tier
+PACK4_AUTO = 1 << 31  # pack4="auto": pack past 2^31 symbols (the JAX rule)
 
 
 @dataclasses.dataclass
@@ -212,47 +223,61 @@ def plan_round(psize, pcounts, reads: ReadStates, buf, d: int,
             ins_bucket, n_ins)
 
 
-def bcr_round(state: FlatBwt, reads: ReadStates, buf, d: int,
-              is_first: bool, *, K, so):
-    """One round merged straight into the base (kernel A).  Returns
+def _state_rank_fn(state, K):
+    """rank_fn(gpos) -> (M, 6) over the base of either tier."""
+    if isinstance(state, PackedFlatBwt):
+        return lambda g: rank_global_packed(state.pbwt, state.blkA,
+                                            state.blkB, g)
+    return lambda g: rank_global(state.bwt, state.blk_prefix, g, K)
+
+
+def _state_merge(state, pos, sym, stream, valid, n, K):
+    """The state with the insertions merged into its buffer and its rank
+    tables rebuilt: kernel C on the packed tier, kernel A on the flat."""
+    if isinstance(state, PackedFlatBwt):
+        pbwt, blkA, blkB = merge_packed(state.pbwt, pos, sym, stream, valid,
+                                        n, K)
+        return dataclasses.replace(state, pbwt=pbwt, blkA=blkA, blkB=blkB)
+    bwt, blk = merge(state.bwt, pos, sym, stream, valid, n, K)
+    return dataclasses.replace(state, bwt=bwt, blk_prefix=blk)
+
+
+def bcr_round(state, reads: ReadStates, buf, d: int, is_first: bool, *, K,
+              so):
+    """One round merged straight into the base (kernel A or C).  Returns
     (new_state, new_reads)."""
     new_reads, gX, sym, stream, active, ins_bucket, n_ins = plan_round(
         state.psize, state.pcounts, reads, buf, d, is_first,
-        lambda g: rank_global(state.bwt, state.blk_prefix, g, K), so=so,
+        _state_rank_fn(state, K), so=so,
     )
-    bwt, blk = merge(state.bwt, gX, sym, stream, active, state.n, K)
-    new_state = FlatBwt(
-        bwt=bwt, n=state.n + n_ins, psize=state.psize + ins_bucket.sum(1),
-        pcounts=state.pcounts + ins_bucket, blk_prefix=blk,
+    new_state = dataclasses.replace(
+        _state_merge(state, gX, sym, stream, active, state.n, K),
+        n=state.n + n_ins, psize=state.psize + ins_bucket.sum(1),
+        pcounts=state.pcounts + ins_bucket,
     )
     return new_state, new_reads
 
 
-def _flush_pending(st: FlatBwt, pend, *, K):
-    """Apply the whole pending set to the base in one merge (kernel A) and
-    reset the pending index.  st.n/psize/pcounts already hold the virtual
-    totals; only the buffer and its rank table change."""
+def _flush_pending(st, pend, *, K):
+    """Apply the whole pending set to the base in one merge (kernel A or C)
+    and reset the pending index.  st.n/psize/pcounts already hold the
+    virtual totals; only the buffer and its rank tables change."""
     pos, sym, stream, valid = pending_flush_args(pend)
-    bwt, blk = merge(st.bwt, pos, sym, stream, valid, st.n - pend.p, K)
-    return dataclasses.replace(st, bwt=bwt, blk_prefix=blk), \
+    return _state_merge(st, pos, sym, stream, valid, st.n - pend.p, K), \
         reset_pending(pend)
 
 
-def bcr_batch_deferred(state: FlatBwt, reads, buf, n_rounds: int, *, K, so,
-                       defer_r, pcap):
+def bcr_batch_deferred(state, reads, buf, n_rounds: int, *, K, so, defer_r,
+                       pcap):
     """All rounds of one batch with the base frozen for ``defer_r`` rounds
     at a time: each round's insertions merge into the pending index
     (kernel B), ranks come from base + pending, and the pending set is
-    flushed into the base every defer_r rounds (kernel A).  ``pcap`` must
-    be >= defer_r * (rows per round)."""
-    pend = empty_pending(pcap, state.bwt.device)
+    flushed into the base every defer_r rounds (kernel A or C).  ``pcap``
+    must be >= defer_r * (rows per round)."""
+    pend = empty_pending(pcap, state.n.device)
     st, rd = state, reads
     for lo in range(0, n_rounds, defer_r):
-        base = st  # frozen through the inner rounds
-
-        def base_fn(g):
-            return rank_global(base.bwt, base.blk_prefix, g, K)
-
+        base_fn = _state_rank_fn(st, K)  # the base is frozen meanwhile
         n, psize, pcounts = st.n, st.psize, st.pcounts
         for d in range(lo, min(lo + defer_r, n_rounds)):
             rd, gX, sym, stream, active, ins_bucket, n_ins = plan_round(
@@ -268,8 +293,8 @@ def bcr_batch_deferred(state: FlatBwt, reads, buf, n_rounds: int, *, K, so,
     return st, rd
 
 
-def bcr_batch(state: FlatBwt, reads, buf, n_rounds: int, *, K, so,
-              defer_r=0, pcap=0):
+def bcr_batch(state, reads, buf, n_rounds: int, *, K, so, defer_r=0,
+              pcap=0):
     """All rounds of one batch: merged every round, or deferred when
     defer_r > 0 (bcr_batch_deferred)."""
     if defer_r > 0:
@@ -294,18 +319,34 @@ def _pad_pow2(x, lo=16):
 class TorchBwt:
     """Host-side driver, the mrope_t equivalent: batched insertion
     (mr_insert_multi), single-string insertion, incremental growth across
-    batches, and export of the BWT.  Flat int8 tier.
+    batches, and export of the BWT.  Flat int8 tier, switching to the 4-bit
+    packed tier (index/packed.py) once a build plans past a threshold.
 
     ``defer_r``: None picks the pending depth R from the capacity per batch
     (_choose_defer), 0 merges every round, R > 1 defers R rounds.
-    ``device``: where the index lives; None means the card when there is
-    one, else the CPU."""
+    ``device``: where the index lives; None means the card, and raises
+    when there is none (pass device="cpu" for the plain versions).
+    ``pack4``: the packed-tier threshold, as the JAX package's
+    ROPEBWT2_TPU_PACK4: "auto" packs once the planned total passes 2^31
+    symbols, 0 never packs, and an integer T packs past T symbols (K must
+    then be 128)."""
 
-    def __init__(self, so=SO_IO, K=128, defer_r=None, device=None):
+    def __init__(self, so=SO_IO, K=128, defer_r=None, device=None,
+                 pack4="auto"):
         if so not in (SO_IO, SO_RLO, SO_RCLO):
             raise ValueError(f"unknown sorting order {so}")
         if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "TorchBwt: no CUDA device; pass device='cpu' to build "
+                    "on the CPU with the plain versions of the kernels")
+            device = "cuda"
+        if pack4 == "auto":
+            self._pack_thr = PACK4_AUTO
+        elif isinstance(pack4, int) and pack4 >= 0:
+            self._pack_thr = pack4 or None
+        else:
+            raise ValueError(f"pack4 must be 'auto' or an int >= 0: {pack4!r}")
         self.so = so
         self.K = K
         self.device = torch.device(device)
@@ -335,11 +376,29 @@ class TorchBwt:
         return r, pending_cap(mpad, r)
 
     def _plan(self, extra_symbols: int):
-        """Grow the capacity to hold ``extra_symbols`` more.  An upfront
-        plan (>= 4x the capacity, >= 2^24) rounds linearly to PLAN_ALIGN;
-        incremental growth rounds to a power of two."""
+        """Grow the capacity to hold ``extra_symbols`` more.  Past the
+        pack4 threshold the index is (or becomes) packed, its capacity
+        rounded linearly to PACK_ALIGN.  Otherwise an upfront plan (>= 4x
+        the capacity, >= 2^24) rounds linearly to PLAN_ALIGN, and
+        incremental growth to a power of two."""
         need = self._n + extra_symbols
         cap = self.state.cap
+        is_packed = isinstance(self.state, PackedFlatBwt)
+        if self._pack_thr is not None and (need > self._pack_thr
+                                           or is_packed):
+            if self.K != 128:
+                raise ValueError(f"the packed tier needs K = 128, not "
+                                 f"{self.K}")
+            new_cap = _round_up(cap if need <= cap else
+                                _round_up(need, PACK_ALIGN), 256)
+            if is_packed:
+                self.state = grow_packed_state(self.state, new_cap)
+            else:
+                if cap % 256:
+                    self.state = grow_state(self.state, _round_up(cap, 256),
+                                            self.K)
+                self.state = packed_from_flat(self.state, new_cap)
+            return
         if need <= cap:
             return
         if need >= 4 * cap and need >= (1 << 24):
@@ -446,7 +505,11 @@ class TorchBwt:
         return self.state.pcounts.sum(dim=0).cpu().numpy()
 
     def bwt_array(self) -> np.ndarray:
-        """The full BWT as an int8 numpy array."""
+        """The full BWT as an int8 numpy array (a packed index unpacks the
+        packed rows that cover it, on its device)."""
+        if isinstance(self.state, PackedFlatBwt):
+            nbytes = -(-self._n // 256) * 128
+            return unpack_bwt(self.state.pbwt[:nbytes])[: self._n].cpu().numpy()
         return self.state.bwt[: self._n].cpu().numpy()
 
     def runs(self):

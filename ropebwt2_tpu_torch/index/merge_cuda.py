@@ -65,12 +65,18 @@ def _check(bwt, pos, sym, stream, valid, n, K):
     if bwt.shape[0] % K or K % LANE:
         raise ValueError(f"merge: allocation {bwt.shape[0]} must be a "
                          f"multiple of K {K}, and K of {LANE}")
+    check_lanes("merge", bwt.device, pos, sym, stream, valid, n)
+
+
+def check_lanes(fn, device, pos, sym, stream, valid, n):
+    """Raise unless a merge's insertion lanes (int64 pos/sym/stream, bool
+    valid, all of one shape) and its 0-dim int64 n are on ``device``."""
     m = pos.shape
     for name, t, dt in (("pos", pos, torch.int64), ("sym", sym, torch.int64),
                         ("stream", stream, torch.int64),
                         ("valid", valid, torch.bool)):
-        if t.device != bwt.device or t.dtype != dt or t.shape != m:
-            raise ValueError(f"merge: {name} must be {dt}{list(m)} on "
-                             f"{bwt.device}")
-    if n.device != bwt.device or n.dtype != torch.int64 or n.dim() != 0:
-        raise ValueError("merge: n must be a 0-dim int64 tensor on the card")
+        if t.device != device or t.dtype != dt or t.shape != m:
+            raise ValueError(f"{fn}: {name} must be {dt}{list(m)} on "
+                             f"{device}")
+    if n.device != device or n.dtype != torch.int64 or n.dim() != 0:
+        raise ValueError(f"{fn}: n must be a 0-dim int64 tensor on the card")

@@ -8,16 +8,21 @@ installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Every comparison is exact (integers): the live prefix and its table rows
-for the merge, every row for the pending merge."""
+for the flat and the packed merge, every row for the pending merge."""
 
 import numpy as np
 import pytest
 import torch
 
 from ropebwt2_tpu_torch.engine import TorchBwt
-from ropebwt2_tpu_torch.index import merge_cuda, pending_cuda
+from ropebwt2_tpu_torch.index import merge_cuda, merge_packed_cuda, \
+    pending_cuda
 from ropebwt2_tpu_torch.index.flat import PAD_TAIL, table_dtype
 from ropebwt2_tpu_torch.index.merge import apply_insertions
+from ropebwt2_tpu_torch.index.packed import (
+    LANE, PPAD_ROWS, apply_insertions_packed, blkb_row,
+    build_two_level_tables, pack_bwt_np, unpack_bwt,
+)
 from ropebwt2_tpu_torch.index.pending import (
     INF, KP, PendingIndex, merge_rows, new_rows,
 )
@@ -107,6 +112,70 @@ def test_build_on_the_card_matches_the_cpu(dev, so, defer_r):
         for b in batches:
             eng.insert_multi(b)
     assert merge_cuda.LAUNCHES > merges
+    assert (pending_cuda.LAUNCHES > pendings) == (defer_r > 0)
+    assert np.array_equal(engines[0].bwt_array(), engines[1].bwt_array())
+    assert np.array_equal(engines[0].counts(), engines[1].counts())
+
+
+def _absolute(blkA, blkB, cap, nblk):
+    """int64 per-symbol prefix at symbol rows 0..nblk-1 of two-level
+    tables: anchor + anchor-relative row."""
+    blks = torch.arange(nblk, device=blkA.device)
+    return blkA[(blks * LANE) >> 24] + blkB[blkb_row(blks, cap // 256)]
+
+
+@pytest.mark.parametrize("case", ["random", "dense", "garbage", "masked"])
+def test_merge_packed_kernel_matches_plain(dev, case):
+    """Kernel C against apply_insertions_packed + build_two_level_tables;
+    the garbage case also has a capacity that is not a multiple of the
+    CTA's 4096 symbols, so its last CTA is ragged, and the masked case
+    leaves three lanes in four inactive, as a flush of a part-filled
+    pending set does."""
+    rng = np.random.default_rng(50 + len(case))
+    cap, m = (1 << 20) + (768 if case == "garbage" else 0), 4096
+    n = cap - m - 7
+    syms = np.full(cap + 2 * LANE * PPAD_ROWS, 6, np.int8)
+    syms[:n] = rng.integers(0, 6, n)
+    if case == "garbage":
+        syms[n:] = rng.integers(0, 16, syms.shape[0] - n)
+    a = {"dense": m - 10, "masked": m // 4}.get(case, m)
+    pos = np.zeros(m, np.int64)
+    pos[:a] = np.sort(rng.integers(0, n + 1, a))
+    if case == "dense":
+        pos[: a // 2] = n // 2
+        pos[:a] = np.sort(pos[:a])
+    stream = np.where(np.arange(m) < a, np.arange(m), 0)
+    pb, pos, sym, stream, valid, nt = [torch.from_numpy(x).to(dev) for x in (
+        pack_bwt_np(syms), pos, rng.integers(0, 6, m), stream,
+        np.arange(m) < a, np.asarray(n))]
+    launches = merge_packed_cuda.LAUNCHES
+    got, gA, gB = merge_packed_cuda.merge_packed(pb, pos, sym, stream, valid,
+                                                 nt, 128)
+    torch.cuda.synchronize()
+    assert merge_packed_cuda.LAUNCHES == launches + 1
+    want = apply_insertions_packed(pb, nt, pos, sym, stream, valid)
+    wA, wB = build_two_level_tables(want, cap)
+    live = n + a
+    assert got.shape == want.shape
+    assert gA.dtype == wA.dtype and gB.dtype == wB.dtype
+    assert torch.equal(unpack_bwt(got)[:live], unpack_bwt(want)[:live])
+    nblk = live // LANE + 1
+    assert torch.equal(_absolute(gA, gB, cap, nblk),
+                       _absolute(wA, wB, cap, nblk))
+
+
+@pytest.mark.parametrize("defer_r", [0, 4])
+def test_packed_build_on_the_card_matches_the_cpu(dev, defer_r):
+    rng = np.random.default_rng(60 + defer_r)
+    batches = [[rng.integers(1, 6, int(k)).astype(np.int8)
+                for k in rng.integers(1, 60, 300)] for _ in range(2)]
+    engines = [TorchBwt(so=1, defer_r=defer_r, device=d, pack4=1)
+               for d in (dev, "cpu")]
+    packs, pendings = merge_packed_cuda.LAUNCHES, pending_cuda.LAUNCHES
+    for eng in engines:
+        for b in batches:
+            eng.insert_multi(b)
+    assert merge_packed_cuda.LAUNCHES > packs
     assert (pending_cuda.LAUNCHES > pendings) == (defer_r > 0)
     assert np.array_equal(engines[0].bwt_array(), engines[1].bwt_array())
     assert np.array_equal(engines[0].counts(), engines[1].counts())

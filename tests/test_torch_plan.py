@@ -156,10 +156,13 @@ def test_port_imports_and_builds_without_jax():
         "import numpy as np\n"
         "import ropebwt2_tpu_torch.engine\n"
         "import ropebwt2_tpu_torch.convert\n"
+        "import ropebwt2_tpu_torch.index.packed\n"
+        "import ropebwt2_tpu_torch.index.merge_packed_cuda\n"
         "from ropebwt2_tpu_torch.engine import TorchBwt\n"
-        "e = TorchBwt(so=1, defer_r=2, device='cpu')\n"
-        "e.insert_multi([np.array([1, 2, 3, 4], np.int8)] * 3)\n"
-        "assert e.counts().tolist() == [3, 3, 3, 3, 3, 0]\n"
+        "for pack4 in (0, 1):\n"
+        "    e = TorchBwt(so=1, defer_r=2, device='cpu', pack4=pack4)\n"
+        "    e.insert_multi([np.array([1, 2, 3, 4], np.int8)] * 3)\n"
+        "    assert e.counts().tolist() == [3, 3, 3, 3, 3, 0]\n"
         "assert not any(m.split('.')[0] in ('jax', 'ropebwt2_tpu')\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
     )
