@@ -6,19 +6,23 @@
 Phases, each reported on its own line:
 
 1. device: the card's name and power limit; build the three kernels from
-   ropebwt2_tpu_torch/csrc (one nvcc per source, in parallel) and time it;
+   ropebwt2_tpu_torch/csrc, and the probe and toy libraries from
+   csrc/probes (one nvcc per source, all started together), and time it;
 2. kernel A (merge) against its plain version on the card, at the batch
    shape (cap 2^24, 2^17 insertions), at the flush shape (cap 147,062,784,
-   2^20 insertions) and on a dense case;
+   2^20 insertions) and on a dense case; the kernel alone beside the
+   wrapper, and its bound;
 2b. kernel C (packed merge) against its plain version at the every-round
    shape (cap 2^24, 2^17 insertions), on a dense case with a ragged last
-   block, and at cap 2^28 + 2^20 with 2^24 insertions (17 anchor chunks);
+   block, at cap 2^28 + 2^20 with 2^24 insertions (17 anchor chunks) and
+   at the packed sustained regime's flush (cap 147,849,216, 2^20);
    then at the capacity phase's flush shape (cap 2,246,049,792, 2^24
    lanes of which 6 * 2^20 active, n past 2^31), where the plain version
    would need ~72 GB,
    against kernel A on the unpacked int8 copy with int64 tables;
 3. kernel B (pending merge) against its plain version, pcap 2^20 with
-   2^17 rows per round, the pending set 0%, 30% and 90% full;
+   2^17 rows per round, the pending set 0%, 30% and 90% full, and at the
+   capacity path's shape (pcap 2^24, 2^20 rows, half full);
 4. small builds (4096 reads x 101 in 3 batches, so 0/1/2, defer_r 0/8):
    the card's BWT equals the CPU's byte for byte, and an LF walk from
    every sentinel spells back the multiset of the reads; the same builds
@@ -37,7 +41,25 @@ Phases, each reported on its own line:
    int64 tables at 2^20+ positions (every anchor boundary +-1, positions
    past 2^31); an LF walk from 4096 sentinel rows spells reads of the
    input; the md5 of the BWT in scale_run.py's text encoding.  Kernels B
-   and C must launch.
+   and C must launch;
+7. the probe suite (ropebwt2_tpu_torch/probes), the counterparts of the
+   TPU probe scripts, in the order H (kernel A's cost per CTA against its
+   bound), F (the merge wrapper's steps), E (kernel A's stages looped
+   alone), D (a cold build and a fresh process's first kernel result), G
+   (the Hopper feature probes).  Every probe kernel is first held against
+   its plain version, and the feature kernels again at their timing
+   shapes; a feature that does not compile is printed as FAIL and is no
+   failure, one that compiles and disagrees is.
+
+Launches are counted per path: each path (the batch and the sustained
+regime of phase 5, flat and packed, the capacity build of phase 6, the
+probe suite of phase 7) runs with every count set to 0 just before it
+and is read just after.  A count is of eager launches: the probes time
+short kernels in CUDA graphs, whose capture launches nothing and whose
+replays do not call the wrappers.  Every kernel's entry in the kernels line has
+its time, its plain version's, its bound (the bytes it must move over
+the card's 3.35 TB/s, probes/_timing.py), the library call's where one
+PyTorch call computes the same function, and its launches by path.
 
 Every comparison is exact (integer data: max_abs_err must be 0).  The
 script fails with a nonzero exit, and prints no result line, when there
@@ -52,6 +74,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -72,7 +95,9 @@ SMALL = (4096, (1366, 1365, 1365))  # reads, batch sizes
 SCALE_MBATCH, SCALE_BATCHES = 1 << 20, 21
 CAP_SCALE = SCALE_BATCHES * SCALE_MBATCH * (L_BENCH + 1)  # 2,246,049,792
 SCALE_WALKS = 4096  # sentinel rows walked back to their reads
-# name, cap, insertion lanes, live n, dense, reference; the flush case
+CAP_PACKED = 147_849_216  # the packed sustained regime's capacity (phase 5)
+# name, cap, insertion lanes, live n, dense, reference; the sustained case
+# is a flush of the packed sustained regime (R = 8), the flush case
 # leaves 10 of 16 rounds' lanes inactive, as the last flush of a phase 6
 # batch (102 rounds, R = 16) does
 PACKED_CASES = (
@@ -81,10 +106,15 @@ PACKED_CASES = (
     ("dense", (1 << 24) + 768, 1 << 17, 5_000_000, True, "plain"),
     ("chunks", (1 << 28) + (1 << 20), 1 << 24, (1 << 28) - (1 << 24) + 777,
      False, "plain"),
+    ("sustained", CAP_PACKED, 1 << 20, CAP_PACKED - (1 << 20) - 12345, False,
+     "plain"),
     ("flush", CAP_SCALE, 1 << 24, CAP_SCALE - (1 << 24) - 12345, False,
      "kernel A"),
 )
 FLUSH_ACTIVE = 6 << 20  # active lanes of the packed flush case
+# kernel B at the capacity path's shape: pcap 2^24 (R = 16), 2^20 rows
+# per round, the pending set half full (its mean over a flush cycle)
+PEND_CAPACITY = (1 << 24, 1 << 20, CAP_SCALE, 0.5)
 
 
 def say(*a):
@@ -94,17 +124,9 @@ def say(*a):
 def time_ms(fn, iters=5):
     """Mean device time of fn() in ms over ``iters`` calls, after one
     warm-up call (CUDA events)."""
-    import torch
+    from ropebwt2_tpu_torch.probes._timing import event_ms
 
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return event_ms(fn, iters)
 
 
 def profile(fn):
@@ -149,25 +171,42 @@ def max_abs_diff(a, b):
     return int((a.long() - b.long()).abs().max())
 
 
-def reset_launches():
-    """Set every kernel's launch count to 0."""
+def _counters():
+    """(module, kernel name, key) of every launch count: a module-level
+    int (key None) or a dict entry."""
     from ropebwt2_tpu_torch.index import (
         merge_cuda, merge_packed_cuda, pending_cuda,
     )
+    from ropebwt2_tpu_torch.probes import (
+        kernel_features, kernel_stages, warmup_build,
+    )
 
-    merge_cuda.LAUNCHES = 0
-    merge_packed_cuda.LAUNCHES = 0
-    pending_cuda.LAUNCHES = 0
+    out = [(merge_cuda, "merge", None), (pending_cuda, "pending_merge", None),
+           (merge_packed_cuda, "merge_packed", None),
+           (warmup_build, "toy", None)]
+    out += [(kernel_stages, f"stage_{s}", s) for s in kernel_stages.STAGES]
+    out += [(kernel_features, k, k) for k in kernel_features.KERNELS]
+    return out
+
+
+def reset_launches():
+    """Set every kernel's launch count to 0."""
+    for mod, _, key in _counters():
+        if key is None:
+            mod.LAUNCHES = 0
+        else:
+            mod.LAUNCHES[key] = 0
 
 
 def read_launches():
-    from ropebwt2_tpu_torch.index import (
-        merge_cuda, merge_packed_cuda, pending_cuda,
-    )
+    """{kernel name: launches since the last reset}."""
+    return {name: mod.LAUNCHES if key is None else mod.LAUNCHES[key]
+            for mod, name, key in _counters()}
 
-    return {"merge": merge_cuda.LAUNCHES,
-            "merge_packed": merge_packed_cuda.LAUNCHES,
-            "pending_merge": pending_cuda.LAUNCHES}
+
+def launched(counts):
+    """The kernels of ``counts`` that launched, for printing."""
+    return {k: v for k, v in counts.items() if v}
 
 
 def text_md5(bwt):
@@ -209,13 +248,17 @@ def insertions(gen, m, n, dense, a=None):
 
 def merge_case(gen, cap, m, n, dense, K=128):
     """Random live prefix of n symbols (garbage past it), m sorted
-    insertions; returns the kernel's and the plain version's results on
-    the live prefix and its table rows, and both times."""
+    insertions; holds the kernel's result on the live prefix and its table
+    rows against the plain version's.  Returns max_abs_err, the wrapper's,
+    the plain version's and the kernel's own times (CUDA events on
+    merge_cuda.run_kernel in a CUDA graph, and the profiler), and the
+    kernel's bound."""
     import torch
     from ropebwt2_tpu_torch.index import merge_cuda
     from ropebwt2_tpu_torch.index.flat import PAD_TAIL, table_dtype
     from ropebwt2_tpu_torch.index.merge import apply_insertions
     from ropebwt2_tpu_torch.index.rank import build_block_tables
+    from ropebwt2_tpu_torch.probes import _timing
 
     dev = DEV
     alloc = cap + PAD_TAIL
@@ -240,22 +283,30 @@ def merge_case(gen, cap, m, n, dense, K=128):
     def kern():
         return merge_cuda.merge(bwt, pos, sym, stream, valid, nt, K)
 
-    ms = time_ms(kern)
-    plain_ms = time_ms(plain)
-    return err, ms, plain_ms, kernel_ms(kern, "merge_kernel")
+    nb = -(-alloc // merge_cuda.BS)
+    dest, insmap = merge_cuda.insertion_map(pos, sym, stream, valid, nb)
+    start = merge_cuda.block_prefix(dest, nb)
+    return {"err": err, "wrapper_ms": time_ms(kern),
+            "plain_ms": time_ms(plain),
+            "ms": _timing.graph_ms(lambda: merge_cuda.run_kernel(
+                bwt, insmap, start, nt)),
+            "profiled_ms": kernel_ms(kern, "merge_kernel"),
+            "bound_ms": _timing.bound_ms(_timing.merge_bytes(n, a, alloc))}
 
 
 def phase_merge(torch):
     gen = torch.Generator(device=DEV).manual_seed(2)
-    out = []
+    out = {}
     for name, cap, m, n, dense in MERGE_CASES:
-        err, ms, plain_ms, kms = merge_case(gen, cap, m, n, dense)
-        say(f"[2] merge {name}: cap {cap} M {m} n {n} max_abs_err {err} "
-            f"(tolerance 0) wrapper {ms:.4f} ms plain {plain_ms:.4f} ms "
-            f"kernel alone {fmt_ms(kms)}")
-        if err != 0:
+        r = merge_case(gen, cap, m, n, dense)
+        say(f"[2] merge {name}: cap {cap} M {m} n {n} max_abs_err "
+            f"{r['err']} (tolerance 0) wrapper {r['wrapper_ms']:.4f} ms "
+            f"plain {r['plain_ms']:.4f} ms kernel alone {r['ms']:.4f} ms "
+            f"(profiler {fmt_ms(r['profiled_ms'])}), bound "
+            f"{r['bound_ms']:.4f} ms, share {r['bound_ms'] / r['ms']:.3f}")
+        if r["err"] != 0:
             raise AssertionError(f"merge kernel disagrees ({name})")
-        out.append((name, err, ms, plain_ms))
+        out[name] = r
     return out
 
 
@@ -276,10 +327,11 @@ def packed_case(gen, cap, m, n, dense, ref):
     """Kernel C on a random packed buffer (live prefix of n symbols, any
     nibble past it) with m sorted insertions, against ``ref``: the plain
     version, or kernel A on the unpacked int8 copy with int64 tables.
-    Returns (max_abs_err, wrapper ms, reference ms, kernel-alone ms, active
-    lanes)."""
+    Returns max_abs_err, the wrapper's, the reference's and the kernel's
+    own (profiler) times, the kernel's bound and the active lanes."""
     import torch
     from ropebwt2_tpu_torch.index import merge_cuda, merge_packed_cuda
+    from ropebwt2_tpu_torch.probes import _timing
     from ropebwt2_tpu_torch.index.packed import (
         LANE, PPAD_ROWS, apply_insertions_packed, build_two_level_tables,
         pack_bwt, unpack_bwt,
@@ -336,22 +388,27 @@ def packed_case(gen, cap, m, n, dense, ref):
         for name, us, calls in rows[:8]:
             say(f"[2b]   wrapper profile: {us / 3e3:9.4f} ms/call "
                 f"{calls // 3:4d}x {name[:80]}")
+    bound = _timing.bound_ms(_timing.merge_packed_bytes(n, a, pb.shape[0]))
     torch.cuda.empty_cache()
-    return err, ms, ref_ms, kms, a
+    return {"err": err, "wrapper_ms": ms, "plain_ms": ref_ms,
+            "ms": kms if kms is not None else ms,
+            "ms_of": "kernel" if kms is not None else "wrapper",
+            "bound_ms": bound, "active": a}
 
 
 def phase_packed(torch):
     gen = torch.Generator(device=DEV).manual_seed(5)
-    out = []
+    out = {}
     for name, cap, m, n, dense, ref in PACKED_CASES:
-        err, ms, ref_ms, kms, a = packed_case(gen, cap, m, n, dense, ref)
-        say(f"[2b] merge_packed {name}: cap {cap} M {m} active {a} n {n} "
-            f"reference {ref} max_abs_err {err} (tolerance 0) wrapper "
-            f"{ms:.4f} ms "
-            f"{ref} {ref_ms:.4f} ms kernel alone {fmt_ms(kms)}")
-        if err != 0:
+        r = packed_case(gen, cap, m, n, dense, ref)
+        say(f"[2b] merge_packed {name}: cap {cap} M {m} active {r['active']}"
+            f" n {n} reference {ref} max_abs_err {r['err']} (tolerance 0) "
+            f"wrapper {r['wrapper_ms']:.4f} ms {ref} {r['plain_ms']:.4f} ms "
+            f"kernel alone ({r['ms_of']}) {r['ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms, share {r['bound_ms'] / r['ms']:.3f}")
+        if r["err"] != 0:
             raise AssertionError(f"packed merge kernel disagrees ({name})")
-        out.append((name, err, ms, ref_ms))
+        out[name] = r
     return out
 
 
@@ -363,12 +420,14 @@ def phase_pending(torch):
         INF, KP, PendingIndex, merge_rows, new_rows,
     )
     from ropebwt2_tpu_torch.index.rank import build_block_tables
+    from ropebwt2_tpu_torch.probes import _timing
 
     dev = DEV
     gen = torch.Generator(device=dev).manual_seed(3)
-    pcap, m, nmax = PEND_SHAPE
-    out = []
-    for frac in (0.0, 0.3, 0.9):
+    cases = [(*PEND_SHAPE, frac) for frac in (0.0, 0.3, 0.9)]
+    cases.append(PEND_CAPACITY)
+    out = {}
+    for pcap, m, nmax, frac in cases:
         pfill = int(pcap * frac)
         vp = torch.full((pcap,), INF, dtype=torch.int64, device=dev)
         vp[:pfill] = torch.sort(torch.randint(
@@ -398,12 +457,20 @@ def phase_pending(torch):
         ms = time_ms(lambda: pending_cuda.merge(*args))
         plain_ms = time_ms(lambda: merge_rows(*args))
         kms = kernel_ms(lambda: pending_cuda.merge(*args), "pending_kernel")
+        bound = _timing.bound_ms(_timing.pending_bytes(pcap, pfill + a, a))
+        kt = kms if kms is not None else ms
         say(f"[3] pending {int(frac * 100)}% full: pcap {pcap} M {m} "
             f"active {a} max_abs_err {err} (tolerance 0) wrapper {ms:.4f} ms "
-            f"plain {plain_ms:.4f} ms kernel alone {fmt_ms(kms)}")
+            f"plain {plain_ms:.4f} ms kernel alone {fmt_ms(kms)}, bound "
+            f"{bound:.4f} ms, share {bound / kt:.3f}")
         if err != 0:
             raise AssertionError(f"pending kernel disagrees ({frac})")
-        out.append((frac, err, ms, plain_ms))
+        out[(pcap, frac)] = {
+            "err": err, "wrapper_ms": ms, "plain_ms": plain_ms, "ms": kt,
+            "ms_of": "kernel" if kms is not None else "wrapper",
+            "bound_ms": bound}
+        del pend, vp, psym, args, got, ref
+        torch.cuda.empty_cache()
     return out
 
 
@@ -497,11 +564,11 @@ def phase_main(torch, ReadGen):
             raise AssertionError(f"self-check failed: counts {cnt}")
 
     torch.cuda.reset_peak_memory_stats()
-    reset_launches()
     batch_walls = []
     for _ in range(2):  # the first run includes PyTorch's lazy set-up
         eng = TorchBwt(so=1, K=128, device=DEV)
         torch.cuda.synchronize()
+        reset_launches()  # the batch path: the last run's launches
         t0 = time.perf_counter()
         eng.insert_multi(reads)
         torch.cuda.synchronize()
@@ -526,6 +593,7 @@ def phase_main(torch, ReadGen):
         sustained_batches[PREFILL - 1]))
     report_profile("sustained (prefill batch 8)", wall, rows)
     walls = []
+    reset_launches()  # the sustained path: the timed batches
     for bt in sustained_batches[PREFILL:]:
         t0 = time.perf_counter()
         eng.insert_multi(bt)
@@ -538,14 +606,16 @@ def phase_main(torch, ReadGen):
     say(f"[5] batch regime: {syms} symbols into an empty index, walls "
         f"{[round(w, 4) for w in batch_walls]} s, "
         f"{syms / min(batch_walls) / 1e6:.3f} Msym/s (best), launches "
-        f"{batch_launches}")
+        f"{launched(batch_launches)}")
     say(f"[5] sustained regime: cap {eng.state.cap} R {defer_r} pcap {pcap}, "
         f"prefill {PREFILL - 1} batches {prefill_s:.3f} s (+1 profiled), "
         f"timed walls "
         f"{[round(w, 4) for w in walls]} s, "
         f"{syms / min(walls) / 1e6:.3f} Msym/s (best), n {eng.n}")
-    say(f"[5] launches on the main path: {launches}; peak device memory "
-        f"{peak} B ({peak / 2**30:.3f} GiB)")
+    say(f"[5] launches on the batch path (one batch): "
+        f"{launched(batch_launches)}; on the sustained path ({SUSTAIN} timed "
+        f"batches): {launched(launches)}; peak device memory {peak} B "
+        f"({peak / 2**30:.3f} GiB)")
     if launches["merge"] == 0 or launches["pending_merge"] == 0:
         raise AssertionError(f"a kernel never launched: {launches}")
 
@@ -554,7 +624,6 @@ def phase_main(torch, ReadGen):
     del eng
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    reset_launches()
     eng = TorchBwt(so=1, K=128, device=DEV, pack4=1)
     eng._plan((PREFILL + SUSTAIN + 1) * syms)
     p_defer, p_pcap = eng._choose_defer(M_BENCH)
@@ -564,6 +633,7 @@ def phase_main(torch, ReadGen):
     torch.cuda.synchronize()
     p_prefill_s = time.perf_counter() - t0
     p_walls = []
+    reset_launches()  # the packed sustained path: the timed batches
     for bt in sustained_batches[PREFILL:]:
         t0 = time.perf_counter()
         eng.insert_multi(bt)
@@ -582,14 +652,17 @@ def phase_main(torch, ReadGen):
         f"s, {syms / min(p_walls) / 1e6:.3f} Msym/s (best) against flat "
         f"{syms / min(walls) / 1e6:.3f} Msym/s; peak device memory {p_peak} "
         f"B ({p_peak / 2**30:.3f} GiB) against flat {peak} B "
-        f"({peak / 2**30:.3f} GiB); launches {p_launches}")
+        f"({peak / 2**30:.3f} GiB); launches {launched(p_launches)}")
     say(f"[5] packed BWT == flat BWT (compared by md5 of the text "
         f"encoding): {packed_md5 == flat_md5} ({packed_md5}, {flat_md5})")
     if packed_md5 != flat_md5:
         raise AssertionError("the packed tier's BWT differs from the flat's")
     if p_launches["merge_packed"] == 0 or p_launches["pending_merge"] == 0:
         raise AssertionError(f"a kernel never launched: {p_launches}")
-    return launches
+    if batch_launches["merge"] == 0:
+        raise AssertionError(f"a kernel never launched: {batch_launches}")
+    return {"batch": (batch_launches, 1), "sustained": (launches, SUSTAIN),
+            "sustained_packed": (p_launches, SUSTAIN)}
 
 
 # ---------------------------------------------------------------- phase 6
@@ -625,8 +698,6 @@ def lf_walk(torch, st, counts, rows, steps):
 
 
 def phase_capacity(torch, ReadGen):
-    from concurrent.futures import ThreadPoolExecutor
-
     from ropebwt2_tpu_torch.engine import TorchBwt
     from ropebwt2_tpu_torch.index.packed import (
         ACHUNK, PackedFlatBwt, rank_global_packed, unpack_bwt,
@@ -703,7 +774,7 @@ def phase_capacity(torch, ReadGen):
         f"{peak / n:.4f} B/sym); resident index {resident} B "
         f"({resident / n:.4f} B/sym: pbwt {st.pbwt.numel()} B, blkA "
         f"{8 * st.blkA.numel()} B, blkB {4 * st.blkB.numel()} B)")
-    say(f"[6] launches on the capacity path: {launches}")
+    say(f"[6] launches on the capacity path: {launched(launches)}")
 
     # rank: packed two-level tables against the int8 rank, int64 tables
     g = torch.Generator(device=DEV).manual_seed(6)
@@ -751,7 +822,147 @@ def phase_capacity(torch, ReadGen):
         raise AssertionError("the capacity phase failed its checks")
     if launches["merge_packed"] == 0 or launches["pending_merge"] == 0:
         raise AssertionError(f"a kernel never launched: {launches}")
-    return launches
+    return {"capacity": (launches, nbatch)}
+
+
+# ---------------------------------------------------------------- phase 7
+
+def phase_probes(torch):
+    """The probe suite: every probe kernel against its plain version, then
+    the probes' measurements in the order H, F, E, D, G with every launch
+    count set to 0 before and read after.  Returns (results, launches)."""
+    from ropebwt2_tpu_torch.probes import (
+        _timing, kernel_features, kernel_scaling, kernel_stages, merge_phases,
+        warmup_build,
+    )
+
+    def tag(line):
+        say(f"[7] {line}")
+
+    t0 = time.perf_counter()
+    errs = {"H": kernel_scaling.check(tag, DEV),
+            "F": merge_phases.check(tag, DEV)}
+    errs.update(kernel_stages.check(tag, DEV))
+    errs["toy"] = warmup_build.check(tag, DEV)
+    feats = kernel_features.check(tag, DEV)
+    errs.update({k: v for k, v in feats.items() if isinstance(v, int)})
+    if any(errs.values()):
+        raise AssertionError(f"a probe disagrees with its plain version: "
+                             f"{errs}")
+    reset_launches()  # the probe suite's path
+    res = {"H": kernel_scaling.measure(tag, DEV),
+           "F": merge_phases.measure(tag, DEV)}
+    flush = next(r for r in res["H"] if r["label"] == "flush")
+    res["E"] = kernel_stages.measure(tag, flush["cta_us"], DEV)
+    x = torch.arange(8 * 128, dtype=torch.int32, device=DEV).view(8, 128)
+    one = torch.ones((), dtype=torch.int32, device=DEV)
+    res["toy"] = {
+        "ms": _timing.graph_ms(lambda: warmup_build.toy(x), 20),
+        "plain_ms": time_ms(lambda: warmup_build.toy_plain(x), 20),
+        "library_ms": _timing.graph_ms(lambda: torch.add(one, x, alpha=2),
+                                       20)}
+    res["D"] = warmup_build.measure(tag)
+    res["G"] = kernel_features.measure(tag, DEV)
+    launches = read_launches()
+    for k, r in res["G"].items():  # the same kernels at their timing shapes
+        errs[k] = max(errs[k], r["err"])
+    if any(errs.values()):
+        raise AssertionError(f"a probe disagrees with its plain version at "
+                             f"its timing shape: {errs}")
+    res["errs"], res["failed"] = errs, {k: v for k, v in feats.items()
+                                        if not isinstance(v, int)}
+    tag(f"eager launches on the probe path (CUDA-graph replays not "
+        f"counted): {launched(launches)}")
+    tag(f"phase 7 took {time.perf_counter() - t0:.1f} s")
+    probe_kernels = (["toy"] + [f"stage_{s}" for s in kernel_stages.STAGES]
+                     + [k for k in kernel_features.KERNELS
+                        if k not in res["failed"]])
+    never = [k for k in probe_kernels if launches[k] == 0]
+    if never:
+        raise AssertionError(f"probe kernels never launched: {never}")
+    return res, launches
+
+
+def kernel_table(merge_res, packed_res, pend_res, paths, probes):
+    """The kernels line: A, B, C with their launches per batch on every
+    path, their time, plain time and bound at the shape of each path, and
+    every probe kernel of phase 7."""
+    from ropebwt2_tpu_torch.probes import _timing, kernel_stages
+
+    def by_path(name):
+        return {path: counts[name] / nbatch
+                for path, (counts, nbatch) in paths.items()}
+
+    def entry(name, source, replaces, launches, err, r, **extra):
+        return {"name": name, "route": "cuda",
+                "source": f"ropebwt2_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": "bytes",
+                "library_ms": r.get("library_ms"), **extra}
+
+    def shapes(res):
+        return {k: {f: v[f] for f in ("ms", "wrapper_ms", "plain_ms",
+                                      "bound_ms")}
+                for k, v in res.items()}
+
+    pend = {f"pcap {k[0]} {int(100 * k[1])}% full": v
+            for k, v in pend_res.items()}
+    # time and bound of A, B, C at the shape each path gives them
+    at_path = {
+        "merge": {"batch": merge_res["batch"],
+                  "sustained": merge_res["flush"]},
+        "pending_merge": {"sustained": pend_res[(PEND_SHAPE[0], 0.3)],
+                          "sustained_packed": pend_res[(PEND_SHAPE[0], 0.3)],
+                          "capacity": pend_res[(PEND_CAPACITY[0],
+                                                PEND_CAPACITY[3])]},
+        "merge_packed": {"sustained_packed": packed_res["sustained"],
+                         "capacity": packed_res["flush"]},
+    }
+    main = []
+    for name, source, replaces, res, first, headline in (
+        ("merge", "merge.cu", "ropebwt2_tpu/index/merge_pallas.py:582",
+         merge_res, merge_res["batch"], "sustained"),
+        ("pending_merge", "pending.cu",
+         "ropebwt2_tpu/index/pending_pallas.py:279", pend,
+         pend_res[(PEND_SHAPE[0], 0.3)], "sustained"),
+        ("merge_packed", "merge_packed.cu",
+         "ropebwt2_tpu/index/merge_pallas_packed.py:353", packed_res,
+         packed_res["round"], "capacity"),
+    ):
+        per_batch = by_path(name)
+        path_rows = {
+            p: {"launches_per_batch": per_batch[p], "ms": r["ms"],
+                "bound_ms": r["bound_ms"],
+                "rank_ms": per_batch[p] * (r["ms"] - r["bound_ms"])}
+            for p, r in at_path[name].items() if per_batch.get(p)}
+        main.append(entry(
+            name, source, replaces,
+            paths[headline][0][name], max(r["err"] for r in res.values()),
+            first, shapes=shapes(res), by_path=path_rows))
+    probes_out = []
+    toy = dict(probes["toy"], bound_ms=_timing.bound_ms(2 * 4 * 8 * 128))
+    probes_out.append(entry("toy", "probes/toy.cu",
+                            "scripts/probe_warmup_aot.py:34",
+                            probes["launches"]["toy"],
+                            probes["errs"]["toy"], toy))
+    for st, r in probes["E"].items():
+        probes_out.append(entry(
+            f"stage_{st}", "probes/stages.cu",
+            "scripts/probe_kernel_stages.py:30",
+            probes["launches"][f"stage_{st}"], probes["errs"][st],
+            {"ms": r["pass_ms"], "plain_ms": r["plain_ms"],
+             "bound_ms": r["bound_ms"]},
+            ms_of=f"one pass of {r['grid']} CTAs (launch / "
+                  f"{kernel_stages.ITERS})",
+            bound_of="the pass's bytes through L1 and shared memory",
+            hbm_in_a_ms=r["hbm_in_a_ms"], one_cta_us=r["one_cta_us"],
+            share_of_a=r["of_a"]))
+    for k, r in probes["G"].items():
+        probes_out.append(entry(
+            k, "probes/features.cu", "scripts/probe_kfeat_tpu.py:25",
+            probes["launches"][k], probes["errs"][k], r))
+    return main + probes_out
 
 
 def main():
@@ -775,50 +986,40 @@ def main():
         f"torch {torch.__version__} cuda {torch.version.cuda}")
     say(f"[1] nvidia-smi: {smi}")
     t0 = time.perf_counter()
-    _build.lib()
+    # the main, the probe and the toy library, every nvcc started together
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        for f in [pool.submit(_build.lib), pool.submit(_build.probe_lib),
+                  pool.submit(_build.build, "toy")]:
+            f.result()
     built = _build.BUILD_SECONDS
     say(f"[1] kernels ready in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {'%.2f s' % built if built is not None else 'cached'}): "
-        f"{_build.library_path().name}")
-    log = _build.library_path().with_suffix(".log")
-    if log.exists():
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                say(f"[1] ptxas: {line.strip()}")
+        f"(main nvcc {'%.2f s' % built if built is not None else 'cached'}):"
+        f" {_build.library_path().name}, "
+        f"{_build.library_path('probes').name}, "
+        f"{_build.library_path('toy').name}")
+    for lib in ("main", "probes"):
+        log = _build.library_path(lib).with_suffix(".log")
+        if log.exists():
+            for line in log.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    say(f"[1] ptxas ({lib}): {line.strip()}")
+    for unit, status in _build.unit_status("probes").items():
+        if status != "ok":
+            say(f"[1] probe unit {unit} did not compile (reported in phase "
+                f"7): {status.strip().splitlines()[0][:200]}")
 
     merge_res = phase_merge(torch)
     packed_res = phase_packed(torch)
     pend_res = phase_pending(torch)
     phase_small(torch, ReadGen)
-    launches = phase_main(torch, ReadGen)
-    scale_launches = phase_capacity(torch, ReadGen)
+    paths = phase_main(torch, ReadGen)
+    paths.update(phase_capacity(torch, ReadGen))
+    probes, probe_launches = phase_probes(torch)
+    probes["launches"] = probe_launches
 
-    # ms / plain_ms: merge and packed merge at the every-round shape,
-    # pending merge 30% full; launches: A and B on the flat main path
-    # (phase 5), C on the capacity path (phase 6)
-    kernels = [{
-        "name": "merge", "route": "cuda",
-        "source": "ropebwt2_tpu_torch/csrc/merge.cu",
-        "replaces": "ropebwt2_tpu/index/merge_pallas.py:582",
-        "launches": launches["merge"],
-        "max_abs_err": max(r[1] for r in merge_res),
-        "ms": merge_res[0][2], "plain_ms": merge_res[0][3],
-    }, {
-        "name": "pending_merge", "route": "cuda",
-        "source": "ropebwt2_tpu_torch/csrc/pending.cu",
-        "replaces": "ropebwt2_tpu/index/pending_pallas.py:279",
-        "launches": launches["pending_merge"],
-        "max_abs_err": max(r[1] for r in pend_res),
-        "ms": pend_res[1][2], "plain_ms": pend_res[1][3],
-    }, {
-        "name": "merge_packed", "route": "cuda",
-        "source": "ropebwt2_tpu_torch/csrc/merge_packed.cu",
-        "replaces": "ropebwt2_tpu/index/merge_pallas_packed.py:353",
-        "launches": scale_launches["merge_packed"],
-        "max_abs_err": max(r[1] for r in packed_res),
-        "ms": packed_res[0][2], "plain_ms": packed_res[0][3],
-    }]
-    say(json.dumps({"kernels": kernels}))
+    kernels = kernel_table(merge_res, packed_res, pend_res, paths, probes)
+    say(json.dumps({"kernels": kernels,
+                    "not_compiled": probes["failed"]}))
     say(smi)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card, and the port's build on the card against its build on the CPU.
 
-These tests need an NVIDIA GPU and skip without one.  They import neither
+These tests need an NVIDIA GPU and skip without one.  The last ones hold
+the probe suite's kernels (ropebwt2_tpu_torch/probes) against their plain
+versions.  They import neither
 JAX nor the test helpers in conftest.py, so they also run where JAX is not
 installed:
 
@@ -27,6 +29,9 @@ from ropebwt2_tpu_torch.index.pending import (
     INF, KP, PendingIndex, merge_rows, new_rows,
 )
 from ropebwt2_tpu_torch.index.rank import build_block_tables
+from ropebwt2_tpu_torch.probes import (
+    _timing, kernel_features, kernel_stages, merge_phases, warmup_build,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -179,3 +184,79 @@ def test_packed_build_on_the_card_matches_the_cpu(dev, defer_r):
     assert (pending_cuda.LAUNCHES > pendings) == (defer_r > 0)
     assert np.array_equal(engines[0].bwt_array(), engines[1].bwt_array())
     assert np.array_equal(engines[0].counts(), engines[1].counts())
+
+
+@pytest.mark.parametrize("stage", kernel_stages.STAGES)
+def test_stage_kernel_matches_plain(dev, stage):
+    """One of kernel A's stages looped (csrc/probes/stages.cu): its last
+    pass against the plain version, on 64 CTAs and on one."""
+    for g in (64, 1):
+        d = kernel_stages.make_inputs(g, 20 + g, dev)
+        launches = kernel_stages.LAUNCHES[stage]
+        got = kernel_stages.run_stage(stage, d, iters=50)
+        torch.cuda.synchronize()
+        assert kernel_stages.LAUNCHES[stage] == launches + 1
+        assert torch.equal(got, kernel_stages.PLAIN[stage](d))
+
+
+def test_toy_kernel_matches_plain(dev):
+    x = torch.arange(8 * 128, dtype=torch.int32, device=dev).view(8, 128) - 7
+    launches = warmup_build.LAUNCHES
+    assert torch.equal(warmup_build.toy(x), x * 2 + 1)
+    assert warmup_build.LAUNCHES == launches + 1
+
+
+def test_graph_capture_and_replay_count_no_launch(dev):
+    """A CUDA graph's capture launches nothing and its replays do not call
+    the wrappers: only the eager warm-up call counts, and the replayed
+    graph computes the toy result."""
+    x = torch.arange(8 * 128, dtype=torch.int32, device=dev).view(8, 128)
+    out = []
+    launches = warmup_build.LAUNCHES
+    g = _timing._graph(lambda i: out.append(warmup_build.toy(x)), 3)
+    g.replay()
+    g.replay()
+    torch.cuda.synchronize()
+    assert warmup_build.LAUNCHES == launches + 1
+    assert all(torch.equal(y, x * 2 + 1) for y in out)
+
+
+@pytest.mark.parametrize("name", kernel_features.KERNELS)
+def test_feature_kernel_matches_plain(dev, name):
+    """Every feature probe that compiles is exact; one that does not is
+    reported by kernel_features.check and skipped here."""
+    head = kernel_features.compiled(name)
+    if head is not None:
+        pytest.skip(f"{name} did not compile: {head}")
+    args = kernel_features.inputs(name, "tiny", dev, seed=30)
+    got = kernel_features.run(name, *args)
+    torch.cuda.synchronize()
+    want = kernel_features._plain(name, *args)
+    for g, w in zip(*((got, want) if isinstance(got, tuple)
+                      else ((got,), (want,)))):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("K", [128, 256])
+def test_merge_steps_on_the_card_equal_merge(dev, K):
+    """merge_cuda's four steps called one by one equal merge(), one launch
+    each, and run_kernel equals its plain version merge_blocks."""
+    cap, m = 1 << 20, 4096
+    n = cap - m - 99
+    args = merge_phases.lanes(cap, m, n, 40, dev)
+    launches = merge_cuda.LAUNCHES
+    a, ta = merge_cuda.merge(*args, K)
+    b, tb = merge_phases.composed(*args, K)
+    torch.cuda.synchronize()
+    assert merge_cuda.LAUNCHES == launches + 2
+    live = n + m
+    assert torch.equal(a[:live], b[:live])
+    assert torch.equal(ta[: live // K + 1], tb[: live // K + 1])
+    bwt, pos, sym, stream, valid, nt = args
+    nb = -(-bwt.shape[0] // merge_cuda.BS)
+    dest, insmap = merge_cuda.insertion_map(pos, sym, stream, valid, nb)
+    start = merge_cuda.block_prefix(dest, nb)
+    got, grows = merge_cuda.run_kernel(bwt, insmap, start, nt)
+    want, wrows = merge_cuda.merge_blocks(bwt, insmap, start, nt)
+    assert torch.equal(got[:live], want[:live])
+    assert torch.equal(grows, wrows)

@@ -158,6 +158,12 @@ def test_port_imports_and_builds_without_jax():
         "import ropebwt2_tpu_torch.convert\n"
         "import ropebwt2_tpu_torch.index.packed\n"
         "import ropebwt2_tpu_torch.index.merge_packed_cuda\n"
+        "import ropebwt2_tpu_torch.probes._timing\n"
+        "import ropebwt2_tpu_torch.probes.kernel_scaling\n"
+        "import ropebwt2_tpu_torch.probes.merge_phases\n"
+        "import ropebwt2_tpu_torch.probes.kernel_stages\n"
+        "import ropebwt2_tpu_torch.probes.warmup_build\n"
+        "import ropebwt2_tpu_torch.probes.kernel_features\n"
         "from ropebwt2_tpu_torch.engine import TorchBwt\n"
         "for pack4 in (0, 1):\n"
         "    e = TorchBwt(so=1, defer_r=2, device='cpu', pack4=pack4)\n"
