@@ -14,20 +14,28 @@ Phases, each reported on its own line:
    wrapper, and its bound;
 2b. kernel C (packed merge) against its plain version at the every-round
    shape (cap 2^24, 2^17 insertions), on a dense case with a ragged last
-   block, at cap 2^28 + 2^20 with 2^24 insertions (17 anchor chunks) and
-   at the packed sustained regime's flush (cap 147,849,216, 2^20);
+   block, on a mixed case (CTAs with no insertion, whose old runs start at
+   symbol 0 and on packed-row boundaries; CTAs that are all insertions;
+   sparse insertions after them, old runs across 17 packed rows), at cap
+   2^28 + 2^20 with 2^24 insertions (17 anchor chunks) and at the packed
+   sustained regime's flush (cap 147,849,216, 2^20);
    then at the capacity phase's flush shape (cap 2,246,049,792, 2^24
    lanes of which 6 * 2^20 active, n past 2^31), where the plain version
    would need ~72 GB,
    against kernel A on the unpacked int8 copy with int64 tables;
-3. kernel B (pending merge) against its plain version, pcap 2^20 with
-   2^17 rows per round, the pending set 0%, 30% and 90% full, and at the
-   capacity path's shape (pcap 2^24, 2^20 rows, half full);
-4. small builds (4096 reads x 101 in 3 batches, so 0/1/2, defer_r 0/8):
+3. kernel B (pending merge) against its plain version through the
+   ping-pong interface (planes given, the engine's bound of the live
+   rows: every row of the capacity compared, the rows past the launched
+   CTAs untouched), pcap 2^20 with 2^17 rows per round, the pending set
+   0% (CTAs all new), 30% and 90% full (p_after = pcap), with no active
+   lane (p_after = 0), and at the capacity path's shape (pcap 2^24, 2^20
+   rows, half full); then pending_add chained over 4 rounds, a reset and 4
+   more, against the plain version round by round;
+4. small builds (4096 reads x 101 in 2 batches, so 0/1/2, defer_r 0/8):
    the card's BWT equals the CPU's byte for byte, and an LF walk from
    every sentinel spells back the multiset of the reads; the same builds
-   on the packed tier (pack4=1) equal the CPU's packed builds and the
-   card's flat builds;
+   on the packed tier (pack4=1) equal the card's flat builds and spell the
+   reads back too;
 5. the main path at the benchmark shape (2^17 coverage reads x 101, RLO,
    K = 128): one batch into an empty index, then a fresh index planned
    for 11 batches with 8 prefill and 2 timed batches; kernels A and B
@@ -61,6 +69,10 @@ its time, its plain version's, its bound (the bytes it must move over
 the card's 3.35 TB/s, probes/_timing.py), the library call's where one
 PyTorch call computes the same function, and its launches by path.
 
+Kernels A, B and C are timed alone as a CUDA graph of their bare launch
+(the profiler's figure beside it as a check); B's and C's times of the
+scalar kernels that this design replaced are printed beside the new ones.
+
 Every comparison is exact (integer data: max_abs_err must be 0).  The
 script fails with a nonzero exit, and prints no result line, when there
 is no card, when the package is not beside it, or when any phase fails.
@@ -89,7 +101,7 @@ MERGE_CASES = (  # name, cap, insertions, live n, dense
     ("dense", 1 << 24, 1 << 17, 5_000_000, True),
 )
 PEND_SHAPE = (1 << 20, 1 << 17, CAP_FLUSH)  # pcap, rows per round, max vp
-SMALL = (4096, (1366, 1365, 1365))  # reads, batch sizes
+SMALL = (4096, (2048, 2048))  # reads, batch sizes
 # the capacity phase: scripts/scale_run.py's configuration (SCALE4G's
 # batches of 2^20 reads), cut from 39,321,600 reads to 21 batches
 SCALE_MBATCH, SCALE_BATCHES = 1 << 20, 21
@@ -104,6 +116,8 @@ PACKED_CASES = (
     ("round", 1 << 24, 1 << 17, (1 << 24) - (1 << 17) - 4097, False,
      "plain"),
     ("dense", (1 << 24) + 768, 1 << 17, 5_000_000, True, "plain"),
+    ("mixed", 1 << 24, 1 << 17, (1 << 24) - (1 << 17) - 4097, "mixed",
+     "plain"),
     ("chunks", (1 << 28) + (1 << 20), 1 << 24, (1 << 28) - (1 << 24) + 777,
      False, "plain"),
     ("sustained", CAP_PACKED, 1 << 20, CAP_PACKED - (1 << 20) - 12345, False,
@@ -115,6 +129,16 @@ FLUSH_ACTIVE = 6 << 20  # active lanes of the packed flush case
 # kernel B at the capacity path's shape: pcap 2^24 (R = 16), 2^20 rows
 # per round, the pending set half full (its mean over a flush cycle)
 PEND_CAPACITY = (1 << 24, 1 << 20, CAP_SCALE, 0.5)
+PEND_CHAIN = 4  # chained rounds of kernel B before and after a reset
+# kernel ms of the scalar kernels B and C that this design replaced, from
+# this script on an NVIDIA H100 80GB HBM3 at 700 W, printed beside the new
+# times: B by (pcap, share full), C by case
+EARLIER_MS = {
+    (1 << 20, 0.0): 0.0248, (1 << 20, 0.3): 0.0233, (1 << 20, 0.9): 0.0311,
+    (1 << 24, 0.5): 0.4612,
+    "round": 0.0482, "dense": 0.0177, "chunks": 0.7225, "sustained": 0.3989,
+    "flush": 5.9672,
+}
 
 
 def say(*a):
@@ -229,14 +253,18 @@ def insertions(gen, m, n, dense, a=None):
     """m insertion lanes into a live prefix of n: (pos, sym, stream, valid,
     active count).  The first ``a`` lanes (all by default) are active, the
     rest inactive.  Dense: half of the active ones at one position, and a
-    tail of 1000 inactive lanes."""
+    tail of 1000 inactive lanes.  "mixed": none below n // 2, a quarter at
+    n // 2, the rest spread above it."""
     import torch
 
     dev = DEV
     if a is None:
-        a = m - 1000 if dense else m
+        a = m - 1000 if dense is True else m
     pos = torch.randint(0, n + 1, (m,), generator=gen, device=dev)
-    if dense:
+    if dense == "mixed":
+        pos = (n // 2 + 1 + pos // 2).clamp(max=n)
+        pos[: a // 4] = n // 2
+    elif dense:
         pos[: a // 2] = n // 3
     pos[a:] = 0
     pos[:a] = torch.sort(pos[:a]).values
@@ -328,7 +356,8 @@ def packed_case(gen, cap, m, n, dense, ref):
     nibble past it) with m sorted insertions, against ``ref``: the plain
     version, or kernel A on the unpacked int8 copy with int64 tables.
     Returns max_abs_err, the wrapper's, the reference's and the kernel's
-    own (profiler) times, the kernel's bound and the active lanes."""
+    own times (a CUDA graph of merge_packed_cuda.run_kernel, and the
+    profiler), the kernel's bound and the active lanes."""
     import torch
     from ropebwt2_tpu_torch.index import merge_cuda, merge_packed_cuda
     from ropebwt2_tpu_torch.probes import _timing
@@ -382,7 +411,13 @@ def packed_case(gen, cap, m, n, dense, ref):
     del got, gA, gB, got_abs, got_a, got_b, want
     ms = time_ms(kern)
     ref_ms = time_ms(reference)
-    kms = kernel_ms(kern, "merge_packed_kernel")
+    nb = -(-2 * pb.shape[0] // merge_packed_cuda.BS)
+    insmap, start = merge_packed_cuda.insertion_map(pos, sym, stream, valid,
+                                                    nb)
+    kms = _timing.graph_ms(lambda: merge_packed_cuda.run_kernel(
+        pb, insmap, start, nt), 5)
+    del insmap, start
+    profiled = kernel_ms(kern, "merge_packed_kernel")
     if ref != "plain":  # where the wrapper's time goes, at this shape
         _, rows = profile(lambda: [kern() for _ in range(3)])
         for name, us, calls in rows[:8]:
@@ -390,10 +425,9 @@ def packed_case(gen, cap, m, n, dense, ref):
                 f"{calls // 3:4d}x {name[:80]}")
     bound = _timing.bound_ms(_timing.merge_packed_bytes(n, a, pb.shape[0]))
     torch.cuda.empty_cache()
-    return {"err": err, "wrapper_ms": ms, "plain_ms": ref_ms,
-            "ms": kms if kms is not None else ms,
-            "ms_of": "kernel" if kms is not None else "wrapper",
-            "bound_ms": bound, "active": a}
+    return {"err": err, "wrapper_ms": ms, "plain_ms": ref_ms, "ms": kms,
+            "ms_of": "kernel", "profiled_ms": profiled, "bound_ms": bound,
+            "active": a}
 
 
 def phase_packed(torch):
@@ -404,7 +438,9 @@ def phase_packed(torch):
         say(f"[2b] merge_packed {name}: cap {cap} M {m} active {r['active']}"
             f" n {n} reference {ref} max_abs_err {r['err']} (tolerance 0) "
             f"wrapper {r['wrapper_ms']:.4f} ms {ref} {r['plain_ms']:.4f} ms "
-            f"kernel alone ({r['ms_of']}) {r['ms']:.4f} ms, bound "
+            f"kernel alone ({r['ms_of']}) {r['ms']:.4f} ms (profiler "
+            f"{fmt_ms(r['profiled_ms'])}; the scalar kernel "
+            f"{fmt_ms(EARLIER_MS.get(name))}), bound "
             f"{r['bound_ms']:.4f} ms, share {r['bound_ms'] / r['ms']:.3f}")
         if r["err"] != 0:
             raise AssertionError(f"packed merge kernel disagrees ({name})")
@@ -413,6 +449,50 @@ def phase_packed(torch):
 
 
 # ---------------------------------------------------------------- phase 3
+
+def pending_chain(torch, gen, pcap, m, nmax):
+    """pending_add (kernel B, two plane pairs in turn) chained over
+    PEND_CHAIN rounds, a reset and PEND_CHAIN more, against the same chain
+    on the plain version (merge_rows) round by round: every row of both
+    planes, the prefix table and p.  Returns (max_abs_err, CTAs launched
+    per round)."""
+    from ropebwt2_tpu_torch.index import pending_cuda
+    from ropebwt2_tpu_torch.index.pending import (
+        PendingIndex, empty_pending, merge_rows, new_rows, pending_add,
+        reset_pending,
+    )
+    from ropebwt2_tpu_torch.index.rank import prefix_rows
+
+    def plain_add(pend, *lanes):
+        varr, sarr, start_new, p_after = new_rows(pend, *lanes)
+        bound = min(pcap, pend.bound + m)
+        vp, psym, rows = merge_rows(pend.vp, pend.psym, varr, sarr,
+                                    start_new, p_after, pend.spare, bound)
+        return PendingIndex(vp=vp, psym=psym,
+                            blk_prefix=prefix_rows(rows, torch.int32),
+                            p=p_after, spare=(pend.vp, pend.psym),
+                            bound=bound)
+
+    got, want = empty_pending(pcap, DEV), empty_pending(pcap, DEV)
+    err, grids = 0, []
+    for r in range(2 * PEND_CHAIN):
+        if r == PEND_CHAIN:
+            got, want = reset_pending(got), reset_pending(want)
+        a = m - int(torch.randint(0, m // 4, (1,), generator=gen, device=DEV))
+        active = torch.arange(m, device=DEV) < a
+        lanes = (torch.sort(torch.randint(0, nmax, (m,), generator=gen,
+                                          device=DEV)).values,
+                 torch.randint(0, 6, (m,), generator=gen, device=DEV),
+                 torch.where(active, torch.arange(m, device=DEV), 0), active)
+        got, want = pending_add(got, *lanes), plain_add(want, *lanes)
+        torch.cuda.synchronize()
+        grids.append(pending_cuda.n_blocks(pcap, got.bound))
+        err = max(err, max_abs_diff(got.vp, want.vp),
+                  max_abs_diff(got.psym, want.psym),
+                  max_abs_diff(got.blk_prefix, want.blk_prefix),
+                  max_abs_diff(got.p, want.p), abs(got.bound - want.bound))
+    return err, grids
+
 
 def phase_pending(torch):
     from ropebwt2_tpu_torch.index import pending_cuda
@@ -424,10 +504,12 @@ def phase_pending(torch):
 
     dev = DEV
     gen = torch.Generator(device=dev).manual_seed(3)
-    cases = [(*PEND_SHAPE, frac) for frac in (0.0, 0.3, 0.9)]
-    cases.append(PEND_CAPACITY)
+    # pcap, lanes, max vp, share full, active lanes (None: all that fit)
+    cases = [(*PEND_SHAPE, frac, None) for frac in (0.0, 0.3, 0.9)]
+    cases.append((*PEND_CAPACITY, None))
+    cases.append((*PEND_SHAPE, 0.0, 0))  # no active lane: p_after = 0
     out = {}
-    for pcap, m, nmax, frac in cases:
+    for pcap, m, nmax, frac, a in cases:
         pfill = int(pcap * frac)
         vp = torch.full((pcap,), INF, dtype=torch.int64, device=dev)
         vp[:pfill] = torch.sort(torch.randint(
@@ -441,36 +523,72 @@ def phase_pending(torch):
             blk_prefix=build_block_tables(psym, KP, dtype=torch.int32),
             p=torch.tensor(pfill, dtype=torch.int64, device=dev),
         )
-        a = min(m, pcap - pfill)
+        idle = a == 0
+        a = min(m, pcap - pfill) if a is None else a
         active = torch.arange(m, device=dev) < a
         gX = torch.sort(torch.randint(0, nmax, (m,), generator=gen,
                                       device=dev)).values
         stream = torch.where(active, torch.arange(m, device=dev), 0)
         sym = torch.randint(0, 6, (m,), generator=gen, device=dev)
-        varr, sarr, start_new, p_after = new_rows(pend, gX, sym, stream,
-                                                  active)
-        args = (pend.vp, pend.psym, varr, sarr, start_new, p_after)
-        got = pending_cuda.merge(*args)
+        lanes = (gX, sym, stream, active)
+        args = (pend.vp, pend.psym, *new_rows(pend, *lanes))
+        # the engine's bound of the live rows, and what it launches
+        bound = min(pcap, pfill + m)
+        ncta = pending_cuda.n_blocks(pcap, bound)
+        hi = min(pcap, ncta * pending_cuda.BS)
+        # both versions write into planes of other values than INF/PAD:
+        # whatever lies past the launched CTAs must come back untouched
+        junk = (torch.randint(0, 1 << 40, (pcap,), generator=gen, device=dev),
+                torch.randint(0, 6, (pcap,), generator=gen, device=dev,
+                              dtype=torch.int8))
+        planes = tuple(x.clone() for x in junk)
+        got = pending_cuda.merge(*args, planes, bound)
         torch.cuda.synchronize()
-        ref = merge_rows(*args)
+        ref = merge_rows(*args, tuple(x.clone() for x in junk), bound)
         err = max(max_abs_diff(g, r) for g, r in zip(got, ref))
-        ms = time_ms(lambda: pending_cuda.merge(*args))
-        plain_ms = time_ms(lambda: merge_rows(*args))
-        kms = kernel_ms(lambda: pending_cuda.merge(*args), "pending_kernel")
-        bound = _timing.bound_ms(_timing.pending_bytes(pcap, pfill + a, a))
-        kt = kms if kms is not None else ms
-        say(f"[3] pending {int(frac * 100)}% full: pcap {pcap} M {m} "
-            f"active {a} max_abs_err {err} (tolerance 0) wrapper {ms:.4f} ms "
-            f"plain {plain_ms:.4f} ms kernel alone {fmt_ms(kms)}, bound "
-            f"{bound:.4f} ms, share {bound / kt:.3f}")
+        err = max(err, max_abs_diff(got[0][hi:], junk[0][hi:]),
+                  max_abs_diff(got[1][hi:], junk[1][hi:]),
+                  int(got[2][hi // KP:].abs().max()) if hi < pcap else 0,
+                  abs(int(args[-1]) - pfill - a))
+        ms = time_ms(lambda: pending_cuda.merge(*args, planes, bound))
+        plain_ms = time_ms(lambda: merge_rows(*args, planes, bound))
+        rows_ms = time_ms(lambda: new_rows(pend, *lanes))
+        rows = got[2].new_empty((-(-pcap // pending_cuda.BS) * 32, 6))
+        kt = _timing.graph_ms(lambda: pending_cuda.run_kernel(
+            *args, *planes, rows, ncta))
+        profiled = kernel_ms(lambda: pending_cuda.merge(*args, planes, bound),
+                             "pending_kernel")
+        bound_ms = _timing.bound_ms(_timing.pending_bytes(pcap, pfill + a, a))
+        label = "no active lane" if idle else f"{int(frac * 100)}% full"
+        say(f"[3] pending {label}: pcap {pcap} M {m} active {a} p_after "
+            f"{pfill + a} max_abs_err {err} (tolerance 0, all {pcap} rows; "
+            f"rows past the launched CTAs untouched) CTAs launched {ncta} of "
+            f"{-(-pcap // pending_cuda.BS)} wrapper {ms:.4f} ms plain "
+            f"{plain_ms:.4f} ms kernel alone (kernel) {kt:.4f} ms (profiler "
+            f"{fmt_ms(profiled)}; the scalar kernel "
+            f"{fmt_ms(EARLIER_MS.get((pcap, frac)) if not idle else None)}), "
+            f"wrapper less kernel {ms - kt:.4f} ms, new_rows {rows_ms:.4f} "
+            f"ms, bound {bound_ms:.4f} ms, share {bound_ms / kt:.3f}")
         if err != 0:
-            raise AssertionError(f"pending kernel disagrees ({frac})")
-        out[(pcap, frac)] = {
-            "err": err, "wrapper_ms": ms, "plain_ms": plain_ms, "ms": kt,
-            "ms_of": "kernel" if kms is not None else "wrapper",
-            "bound_ms": bound}
-        del pend, vp, psym, args, got, ref
+            raise AssertionError(f"pending kernel disagrees ({label})")
+        if not idle:
+            out[(pcap, frac)] = {
+                "err": err, "wrapper_ms": ms, "plain_ms": plain_ms, "ms": kt,
+                "ms_of": "kernel", "profiled_ms": profiled,
+                "new_rows_ms": rows_ms, "bound_ms": bound_ms,
+                "ctas_launched": ncta}
+        del pend, vp, psym, args, got, ref, junk, planes, rows
         torch.cuda.empty_cache()
+    pcap, m, nmax = PEND_SHAPE
+    err, grids = pending_chain(torch, gen, pcap, m, nmax)
+    say(f"[3] pending chained: pcap {pcap} M {m}, {PEND_CHAIN} rounds, a "
+        f"reset, {PEND_CHAIN} more through pending_add against the plain "
+        f"version round by round (every row, the prefix table, p): "
+        f"max_abs_err {err} (tolerance 0); CTAs launched per round {grids} "
+        f"of {-(-pcap // 4096)}")
+    if err != 0:
+        raise AssertionError("chained pending rounds disagree")
+    out[(pcap, 0.3)]["err"] = max(out[(pcap, 0.3)]["err"], err)
     return out
 
 
@@ -509,22 +627,22 @@ def phase_small(torch, ReadGen):
     for so in (0, 1, 2):
         for defer_r in (0, 8):
             arrs = {}
-            for device in (DEV, "cpu"):
-                for pack4 in (0, 1):
-                    eng = TorchBwt(so=so, defer_r=defer_r, device=device,
-                                   pack4=pack4)
-                    for bt in batches:
-                        eng.insert_multi(bt)
-                    arrs[device, pack4] = eng.bwt_array()
+            # the CPU reference is the flat build alone: the packed build
+            # on the card is held against the flat one on the card
+            for device, pack4 in ((DEV, 0), (DEV, 1), ("cpu", 0)):
+                eng = TorchBwt(so=so, defer_r=defer_r, device=device,
+                               pack4=pack4)
+                for bt in batches:
+                    eng.insert_multi(bt)
+                arrs[device, pack4] = eng.bwt_array()
             same = np.array_equal(arrs[DEV, 0], arrs["cpu", 0])
             walk = lf_strings(arrs[DEV, 0], nreads) == want
-            psame = np.array_equal(arrs[DEV, 1], arrs["cpu", 1])
             pflat = np.array_equal(arrs[DEV, 1], arrs[DEV, 0])
             pwalk = lf_strings(arrs[DEV, 1], nreads) == want
             say(f"[4] so {so} defer_r {defer_r}: cuda == cpu {same}, "
-                f"LF walk spells the reads {walk}; packed: cuda == cpu "
-                f"{psame}, == flat on the card {pflat}, LF walk {pwalk}")
-            if not (same and walk and psame and pflat and pwalk):
+                f"LF walk spells the reads {walk}; packed: == flat on the "
+                f"card {pflat}, LF walk {pwalk}")
+            if not (same and walk and pflat and pwalk):
                 raise AssertionError(f"small build failed (so {so}, "
                                      f"defer_r {defer_r})")
 
@@ -540,6 +658,12 @@ def report_profile(label, wall, rows, top=12, tag="[5]"):
     for name, us, calls in rows[:top]:
         say(f"{tag}   {us / 1e3:10.3f} ms {100 * us / 1e6 / busy:5.1f}% "
             f"{calls:7d}x {name[:90]}")
+    for kernel in ("merge_kernel", "pending_kernel", "merge_packed_kernel"):
+        for name, us, calls in rows:  # the hand-written kernels, wherever
+            if kernel in name:        # they rank
+                say(f"{tag}   {kernel}: {us / 1e3:.3f} ms, "
+                    f"{100 * us / 1e6 / busy:.2f}% of device time, {calls} "
+                    f"launches, {us / 1e3 / calls:.4f} ms each")
     out = os.path.join(HERE, "smoke_out")
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(out, f"profile_{label.split()[0]}.txt"), "w") as f:
@@ -1008,12 +1132,19 @@ def main():
             say(f"[1] probe unit {unit} did not compile (reported in phase "
                 f"7): {status.strip().splitlines()[0][:200]}")
 
-    merge_res = phase_merge(torch)
-    packed_res = phase_packed(torch)
-    pend_res = phase_pending(torch)
-    phase_small(torch, ReadGen)
-    paths = phase_main(torch, ReadGen)
-    paths.update(phase_capacity(torch, ReadGen))
+    def timed(tag, phase, *args):
+        t = time.perf_counter()
+        res = phase(*args)
+        say(f"[{tag}] phase {tag} took {time.perf_counter() - t:.1f} s "
+            f"({time.perf_counter() - t0:.1f} s since the build began)")
+        return res
+
+    merge_res = timed("2", phase_merge, torch)
+    packed_res = timed("2b", phase_packed, torch)
+    pend_res = timed("3", phase_pending, torch)
+    timed("4", phase_small, torch, ReadGen)
+    paths = timed("5", phase_main, torch, ReadGen)
+    paths.update(timed("6", phase_capacity, torch, ReadGen))
     probes, probe_launches = phase_probes(torch)
     probes["launches"] = probe_launches
 

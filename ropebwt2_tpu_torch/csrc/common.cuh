@@ -58,4 +58,64 @@ __device__ __forceinline__ void write_row_counts(int (&cs)[NSYM],
   }
 }
 
+// ---- helpers of the coalesced kernels (pending.cu, merge_packed.cu) ----
+
+constexpr uint32_t PAD_WORD = 0x01010101u * PAD;  // four PAD bytes
+
+// The 16 bytes at byte offset `off` (any alignment) of a 16-byte-aligned
+// shared buffer: five aligned words funnel-shifted with __byte_perm.  The
+// buffer must be readable up to the word that holds byte off + 19.
+__device__ __forceinline__ uint4 window16(const uint8_t* buf, int off) {
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(buf) + (off >> 2);
+  const uint32_t sel = 0x3210u + 0x1111u * (uint32_t)(off & 3);
+  const uint32_t w0 = w[0], w1 = w[1], w2 = w[2], w3 = w[3], w4 = w[4];
+  return make_uint4(__byte_perm(w0, w1, sel), __byte_perm(w1, w2, sel),
+                    __byte_perm(w2, w3, sel), __byte_perm(w3, w4, sel));
+}
+
+// Counts of the 6 symbols among 16 symbols held one a byte in v (every
+// byte < 16), packed three to a word in 8-bit fields: a = c0 | c1 << 8 |
+// c2 << 16, b = c3 | c4 << 8 | c5 << 16.  Bit-sliced: the 16 bytes fold
+// into 16 nibbles (z0, z1), bit i of every nibble is gathered into plane
+// p_i (z0's in bit 0 of a nibble, z1's in bit 1), and a symbol's 16 match
+// flags are one three-input logic operation on the planes, counted by one
+// __popc: about 40 instructions for the 96 compares and adds of a count
+// symbol by symbol.
+__device__ __forceinline__ void count16_packed(uint4 v, uint32_t& a,
+                                               uint32_t& b) {
+  constexpr uint32_t L = 0x11111111u, H = 0x22222222u;
+  const uint32_t z0 = v.x | (v.y << 4), z1 = v.z | (v.w << 4);
+  const uint32_t p0 = (z0 & L) | ((z1 << 1) & H);
+  const uint32_t p1 = ((z0 >> 1) & L) | (z1 & H);
+  const uint32_t p2 = ((z0 >> 2) & L) | ((z1 >> 1) & H);
+  const uint32_t p3 = ((z0 >> 3) & L) | ((z1 >> 2) & H);
+  const uint32_t up = p2 | p3;    // not one of 0..3
+  const uint32_t mid = p2 & ~p3;  // one of 4..7
+  const uint32_t c0 = __popc(~(p0 | p1 | up) & (L | H));
+  const uint32_t c1 = __popc(p0 & ~p1 & ~up);
+  const uint32_t c2 = __popc(~p0 & p1 & ~up);
+  const uint32_t c3 = __popc(p0 & p1 & ~up);
+  const uint32_t c4 = __popc(~p0 & ~p1 & mid);
+  const uint32_t c5 = __popc(p0 & ~p1 & mid);
+  a = c0 | c1 << 8 | c2 << 16;
+  b = c3 | c4 << 8 | c5 << 16;
+}
+
+// Row counts from count16_packed: 8 consecutive lanes cover one 128-symbol
+// row, whose counts (at most 128 each) still fit the 8-bit fields, so the
+// 8-lane sum is 6 shuffles.  Lanes 0-5 of each group then write one count
+// each: a warp's four rows go out as 96 consecutive bytes.  `row_out` is
+// the group's row.
+__device__ __forceinline__ void write_row_counts_packed(uint32_t a, uint32_t b,
+                                                        int32_t* row_out) {
+#pragma unroll
+  for (int o = 4; o > 0; o >>= 1) {
+    a += __shfl_xor_sync(0xffffffffu, a, o);
+    b += __shfl_xor_sync(0xffffffffu, b, o);
+  }
+  const int g = threadIdx.x & 7;
+  if (g < NSYM)
+    row_out[g] = (int32_t)(((g < 3 ? a : b) >> (8 * (g % 3))) & 0xFFu);
+}
+
 }  // namespace rb2

@@ -15,23 +15,48 @@
 // else old[p - c(p)], with c(p) the number of destinations <= p.  CTAs
 // wholly past the live prefix n + #ins write zero counts and return.
 //
-// What bounds it on the card: bytes.  Per live symbol it reads 0.5 B of old
-// data and 0.5 B of insertion map and writes 0.5 B, plus 48 B of counts per
-// 256 symbols: about 1.7 B per symbol, against merge.cu's ~3.2.
+// What bounds it on the card: bytes by the model (0.5 B of old data and
+// 0.5 B of insertion map read and 0.5 B written per live symbol, 48 B of
+// counts per 256 symbols: about 1.7 B per symbol).  In fact, at so few
+// bytes a symbol, two other things set the pace: whatever a thread does
+// once per symbol (a byte load, a compare and an add per symbol and
+// letter), and the chain of dependent loads of a CTA (start[b], then the
+// window it points at), which 2048 resident threads an SM cannot hide.
 //
 // What the design does about it: one pass, one CTA per 4096-symbol output
-// block, as in merge.cu.  The block's insertion prefix start[b] comes from
-// outside, so its old symbols are the contiguous run from p0 - start[b];
-// the CTA unpacks that run from nibbles into shared memory.  Each thread
-// owns 16 consecutive outputs of one symbol row: it reads their insertion
-// nibbles as one 16-byte load, a CTA-wide scan of the insertion flags
-// gives each thread its shift, and it gathers from shared memory.  The
-// thread holding the high plane of a byte hands its 16 symbols to the
-// thread holding the low plane (a warp shuffle: they are 8 lanes apart),
-// which stores the 16 packed bytes as one 16-byte store.  None of the TPU
-// kernel's machinery (log-shift ladder, plane-algebra rotates, 2048-symbol
-// window alignment, MXU counts, double buffering) is needed: it exists
-// because Mosaic has no gather.
+// block, as in merge.cu; the block's insertion prefix start[b] comes from
+// outside, so its old symbols are the contiguous run from o0 = p0 -
+// start[b].  Everything per symbol is done 16 symbols at a time:
+// - Stage packed, unpack wide.  The run lies in at most 17 packed rows;
+//   the CTA reads them as 136 16-byte loads (each packed byte once),
+//   splits the planes in registers (& 0x0F0F0F0F, >> 4) and writes both as
+//   16-byte stores into a symbol-linear window in shared memory.
+// - Each thread owns 16 consecutive outputs of one symbol row.  Its
+//   insertion nibbles are four words of one 16-byte load; their number is
+//   an add, a mask and a __popc a word, and a CTA-wide scan gives the
+//   thread's shift.
+// - Loads before uses.  A live CTA starts its map load and its window load
+//   back to back and counts the map while the window is on its way; a CTA
+//   past the live prefix reads neither.  On an NVIDIA H100 80GB HBM3 at
+//   700 W, at cap 2,246,049,792 with 6 * 2^20 insertions: 1.96 ms so,
+//   2.19 ms with the window staged before the map is loaded.  (Skipping
+//   map and scan in a CTA that start[b + 1] == start[b] shows to have no
+//   insertion made the map load wait for start: 2.29 ms.)
+// - A thread with no insertion among its outputs (19 in 20 at a capacity
+//   flush) copies the 16 window bytes at its shift: five aligned words
+//   and four __byte_perm.  A thread with insertions walks its 16 symbols.
+// - Bit-sliced counts (common.cuh, count16_packed): the 16 output symbols
+//   fold into two words of nibbles, a letter's 16 match flags are one
+//   logic operation on four bit planes and its count one __popc; the six
+//   counts ride in two words through a 6-shuffle reduction over the 8
+//   lanes of a row, and a warp's four count rows leave as one 96-byte
+//   store.
+// - The thread holding the high plane of a byte hands its 16 symbols to
+//   the thread holding the low plane (8 lanes below), which stores the 16
+//   packed bytes as one 16-byte store.
+// None of the TPU kernel's machinery (log-shift ladder, plane-algebra
+// rotates, 2048-symbol window alignment, MXU counts, double buffering) is
+// needed: it exists because Mosaic has no gather.
 
 #include "common.cuh"
 
@@ -39,15 +64,15 @@ using namespace rb2;
 
 namespace {
 
-union Chunk {
-  uint4 v;
-  uint8_t b[PER];
-  uint32_t w[PER / 4];
-};
+constexpr int PROW = 2 * LANE;           // symbols of one packed row
+constexpr int WIN_ROWS = BS / PROW + 1;  // packed rows a window can span
+constexpr int WIN = WIN_ROWS * PROW;     // 4352 staged symbols
+constexpr uint32_t NIB = 0x0F0F0F0Fu;
+constexpr uint32_t PAD_BOTH = PAD_WORD | PAD_WORD << 4;  // PAD in both planes
 
-// byte of symbol p: packed row p >> 8 holds 128 bytes
-__device__ __forceinline__ int64_t byte_of(int64_t p) {
-  return (p >> 8) * LANE + (p & (LANE - 1));
+// the number of bytes of x that are not 0 (every byte < 0x80)
+__device__ __forceinline__ int nonzero_bytes(uint32_t x) {
+  return __popc((x + 0x7F7F7F7Fu) & 0x80808080u);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -57,75 +82,88 @@ merge_packed_kernel(const uint8_t* __restrict__ old,
                     const int64_t* __restrict__ n_ptr,
                     uint8_t* __restrict__ out, int32_t* __restrict__ rows,
                     int64_t alloc_bytes, int64_t nb) {
-  __shared__ uint8_t win[BS];
+  __shared__ __align__(16) uint8_t win[WIN + 16];
   __shared__ int warp_tot[WARPS];
   const int t = threadIdx.x;
   const int64_t b = blockIdx.x;
   const int64_t p0 = b * BS;
-  // symbol row of this thread's 16 outputs, in the CTA and globally
-  int32_t* row_out = rows + (b * (BS / LANE) + (t >> 3)) * NSYM;
+  int32_t* cta_rows = rows + b * (BS / LANE) * NSYM;
 
+  const int64_t ins0 = start[b];
   if (p0 >= *n_ptr + start[nb]) {  // wholly past the live prefix
-    if ((t & 7) == 0) {
-#pragma unroll
-      for (int s = 0; s < NSYM; ++s) row_out[s] = 0;
-    }
+    if (t < BS / LANE * NSYM) cta_rows[t] = 0;
     return;
   }
 
-  // this block's old symbols are the contiguous run starting at o0
-  const int64_t alloc_syms = 2 * alloc_bytes;
-  const int64_t o0 = p0 - start[b];
-  for (int i = t; i < BS; i += THREADS) {
-    const int64_t q = o0 + i;
-    uint8_t v = PAD;
-    if (q < alloc_syms) {
-      const uint8_t byte = old[byte_of(q)];
-      v = ((q >> 7) & 1) ? (byte >> 4) : (byte & 0xF);
-    }
-    win[i] = v;
-  }
-
   // 16 outputs of one plane of one packed row: 16 contiguous map bytes
-  const int64_t pt = p0 + (int64_t)t * PER;
-  const int hi = (t >> 3) & 1;  // p0 / 128 is even, so the plane is t's
-  Chunk ins;
-  ins.v = *reinterpret_cast<const uint4*>(insmap + byte_of(pt));
-  uint8_t nib[PER];
-  int k = 0;
-#pragma unroll
-  for (int j = 0; j < PER; ++j) {
-    nib[j] = hi ? (ins.b[j] >> 4) : (ins.b[j] & 0xF);
-    k += nib[j] != 0;
+  // (p0 / 128 is even, so the plane is the thread's own).  This load and
+  // the window's below go out together, before either is used.
+  const int hi_plane = (t >> 3) & 1;
+  const int64_t ob = (b * (BS / PROW) + (t >> 4)) * LANE + (t & 7) * 16;
+  const uint4 iv = *reinterpret_cast<const uint4*>(insmap + ob);
+
+  // this block's old symbols are the contiguous run starting at o0: the
+  // packed rows that hold it, loaded while the map is counted
+  const int64_t o0 = p0 - ins0;
+  const int64_t r0 = o0 >> 8;
+  const int64_t wb = (r0 + (t >> 3)) * LANE + (t & 7) * 16;
+  // alloc_bytes % 16 == 0: a chunk is wholly in the buffer or out of it
+  const bool staged = t < WIN_ROWS * (LANE / 16) && wb + 16 <= alloc_bytes;
+  uint4 ov = make_uint4(PAD_BOTH, PAD_BOTH, PAD_BOTH, PAD_BOTH);
+  if (staged) ov = *reinterpret_cast<const uint4*>(old + wb);
+
+  const int sh = hi_plane * 4;
+  const uint32_t nib[4] = {(iv.x >> sh) & NIB, (iv.y >> sh) & NIB,
+                           (iv.z >> sh) & NIB, (iv.w >> sh) & NIB};
+  const int k = nonzero_bytes(nib[0]) + nonzero_bytes(nib[1]) +
+                nonzero_bytes(nib[2]) + nonzero_bytes(nib[3]);
+
+  // the planes split in registers, symbol-linear from the first row's start
+  if (t < WIN_ROWS * (LANE / 16)) {
+    uint8_t* dst = win + (t >> 3) * PROW + (t & 7) * 16;
+    *reinterpret_cast<uint4*>(dst) =
+        make_uint4(ov.x & NIB, ov.y & NIB, ov.z & NIB, ov.w & NIB);
+    *reinterpret_cast<uint4*>(dst + LANE) =
+        make_uint4((ov.x >> 4) & NIB, (ov.y >> 4) & NIB, (ov.z >> 4) & NIB,
+                   (ov.w >> 4) & NIB);
   }
   // insertions before this thread's first position (also the barrier that
   // publishes the staged window)
-  int c = block_exclusive_scan(k, warp_tot);
+  const int c = block_exclusive_scan(k, warp_tot);
 
-  Chunk o;
-  int cs[NSYM] = {0, 0, 0, 0, 0, 0};
+  const int off = (int)(o0 - r0 * PROW) + t * PER - c;  // first source symbol
+  uint4 o;
+  if (k == 0) {
+    o = window16(win, off);
+  } else {
+    uint32_t ow[4];
+    int src = off;
 #pragma unroll
-  for (int j = 0; j < PER; ++j) {
-    uint8_t v;
-    if (nib[j]) {
-      v = nib[j] - 1;
-      ++c;
-    } else {
-      v = win[t * PER + j - c];
+    for (int wd = 0; wd < 4; ++wd) {
+      uint32_t acc = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t nb4 = (nib[wd] >> (8 * j)) & 0xFu;
+        const uint32_t v = nb4 ? nb4 - 1 : win[src];
+        src += nb4 ? 0 : 1;
+        acc |= v << (8 * j);
+      }
+      ow[wd] = acc;
     }
-    o.b[j] = v;
-#pragma unroll
-    for (int s = 0; s < NSYM; ++s) cs[s] += v == s;
+    o = make_uint4(ow[0], ow[1], ow[2], ow[3]);
   }
+
+  uint32_t ca, cb;
+  count16_packed(o, ca, cb);
+  write_row_counts_packed(ca, cb, cta_rows + (t >> 3) * NSYM);
+
   // the high-plane thread of each byte run is 8 lanes above its low one
-#pragma unroll
-  for (int w = 0; w < PER / 4; ++w) {
-    const uint32_t up = __shfl_down_sync(0xffffffffu, o.w[w], 8);
-    o.w[w] |= up << 4;  // nibbles are < 16: no carry across bytes
-  }
-  const int64_t ob = byte_of(pt);
-  if (!hi && ob + PER <= alloc_bytes) *reinterpret_cast<uint4*>(out + ob) = o.v;
-  write_row_counts(cs, row_out);
+  o.x |= __shfl_down_sync(0xffffffffu, o.x, 8) << 4;  // nibbles are < 16:
+  o.y |= __shfl_down_sync(0xffffffffu, o.y, 8) << 4;  // no carry across
+  o.z |= __shfl_down_sync(0xffffffffu, o.z, 8) << 4;  // bytes
+  o.w |= __shfl_down_sync(0xffffffffu, o.w, 8) << 4;
+  if (!hi_plane && ob + PER <= alloc_bytes)
+    *reinterpret_cast<uint4*>(out + ob) = o;
 }
 
 }  // namespace
@@ -135,7 +173,8 @@ merge_packed_kernel(const uint8_t* __restrict__ old,
 // per-block insertion prefix; n: int64 scalar on the device; out:
 // uint8[alloc_bytes]; rows: int32[nb*32, 6], one row per 128-symbol row
 // (packed row r's low plane is row 2r, its high plane row 2r+1).
-// alloc_bytes % 128 == 0.  Returns cudaGetLastError().
+// alloc_bytes % 128 == 0; old, insmap and out 16-byte aligned.  Returns
+// cudaGetLastError().
 extern "C" int rb2_merge_packed(const void* old, const void* insmap,
                                 const void* start, const void* n, void* out,
                                 void* rows, long long alloc_bytes,

@@ -17,7 +17,7 @@ from .packed import (
     tables_from_plane_counts,
 )
 
-LAUNCHES = 0  # kernel launches by this process
+LAUNCHES = 0  # kernel launches by this process (CUDA-graph captures not)
 
 
 def merge_packed(pbwt, pos, sym, stream, valid, n, K: int = LANE):
@@ -36,17 +36,25 @@ def merge_packed(pbwt, pos, sym, stream, valid, n, K: int = LANE):
         new = apply_insertions_packed(pbwt, n, pos, sym, stream, valid)
         return (new, *build_two_level_tables(new, cap))
     _check(pbwt, pos, sym, stream, valid, n)
-    global LAUNCHES
-    alloc = pbwt.shape[0]
-    nb = -(-2 * alloc // BS)
-    dev = pbwt.device
-    # packed insertion map: nibble sym+1 at plane (dest >> 7) & 1 of byte
-    # (dest >> 8) * 128 + (dest & 127).  Two destinations share a byte
-    # only through different planes, so an ADD scatter is exact where a
-    # set would drop a nibble.  Masked lanes add 0 at a byte of their own
-    # (their lane index): a uint8 add is a compare-and-swap loop, and
-    # millions of masked lanes on one trash byte (a flush's empty pending
-    # rows) serialise on it for seconds.
+    nb = -(-2 * pbwt.shape[0] // BS)
+    insmap, start = insertion_map(pos, sym, stream, valid, nb)
+    out, rows = run_kernel(pbwt, insmap, start, n)
+    planes = rows[: cap // LANE].view(-1, 2, 6)  # symbol rows 2r, 2r + 1
+    return (out, *tables_from_plane_counts(planes[:, 0], planes[:, 1], cap))
+
+
+def insertion_map(pos, sym, stream, valid, nb: int):
+    """(insmap, start) for ``nb`` CTAs: the packed insertion map
+    uint8[nb * 2048], nibble sym + 1 at plane (dest >> 7) & 1 of byte
+    (dest >> 8) * 128 + (dest & 127) for every destination dest = pos +
+    stream, and the exclusive per-CTA insertion prefix int64[nb + 1].
+
+    Two destinations share a byte only through different planes, so an ADD
+    scatter is exact where a set would drop a nibble.  Masked lanes add 0
+    at a byte of their own (their lane index): a uint8 add is a
+    compare-and-swap loop, and millions of masked lanes on one trash byte
+    (a flush's empty pending rows) serialise on it for seconds."""
+    dev = pos.device
     dest = pos + stream
     lane = torch.arange(dest.shape[0], device=dev)
     byte = torch.where(valid, (dest >> 8) * LANE + (dest & (LANE - 1)),
@@ -58,18 +66,35 @@ def merge_packed(pbwt, pos, sym, stream, valid, n, K: int = LANE):
     blk = torch.zeros(nb, dtype=torch.int64, device=dev)
     blk.index_add_(0, torch.where(valid, dest // BS, lane % nb),
                    valid.long())
-    start = torch.cat([blk.new_zeros(1), torch.cumsum(blk, 0)])
+    return insmap, torch.cat([blk.new_zeros(1), torch.cumsum(blk, 0)])
+
+
+def run_kernel(pbwt, insmap, start, n):
+    """(out, rows): kernel C alone on a prepared packed insertion map
+    (uint8[nb * 2048]) and block prefix (int64[nb + 1]), the arguments
+    ``merge_packed`` makes.  out is uint8[alloc], exact up to n +
+    start[-1]; rows is int32[nb * 32, 6], the symbol counts of every 128
+    output symbols (zero for CTAs wholly past the live prefix)."""
+    global LAUNCHES
+    if not pbwt.is_cuda:
+        raise ValueError(f"merge_packed: unsupported device {pbwt.device}")
+    alloc = pbwt.shape[0]
+    nb = -(-2 * alloc // BS)
     out = torch.empty_like(pbwt)
-    rows = torch.empty((nb * (BS // LANE), 6), dtype=torch.int32, device=dev)
+    rows = torch.empty((nb * (BS // LANE), 6), dtype=torch.int32,
+                       device=pbwt.device)
+    if pbwt.data_ptr() % 16 or insmap.data_ptr() % 16 or out.data_ptr() % 16:
+        raise ValueError("merge_packed: the packed buffers must be 16-byte "
+                         "aligned")
     rc = _build.lib().rb2_merge_packed(
         pbwt.data_ptr(), insmap.data_ptr(), start.data_ptr(), n.data_ptr(),
         out.data_ptr(), rows.data_ptr(), alloc, nb,
-        torch.cuda.current_stream(dev).cuda_stream,
+        torch.cuda.current_stream(pbwt.device).cuda_stream,
     )
     _build.check(rc, "rb2_merge_packed")
-    LAUNCHES += 1
-    planes = rows[: cap // LANE].view(-1, 2, 6)  # symbol rows 2r, 2r + 1
-    return (out, *tables_from_plane_counts(planes[:, 0], planes[:, 1], cap))
+    if not torch.cuda.is_current_stream_capturing():  # a capture launches none
+        LAUNCHES += 1
+    return out, rows
 
 
 def _check(pbwt, pos, sym, stream, valid, n):

@@ -18,9 +18,21 @@ State (all on the device, static capacity pcap):
 * ``blk_prefix`` int32[pcap//KP+1, 6] per-symbol prefix counts at every
   KP-row boundary of psym
 * ``p``    int64 0-dim live count
+
+Where the JAX package's pending_add returns new arrays, the port keeps TWO
+plane pairs and updates them in place, in turn: a round's merge reads the
+pair that holds the rows and writes the other (``spare``), which held the
+rows of two rounds ago.  ``p`` only grows between flushes, so the spare
+pair's rows at or past ``p`` still hold INF/PAD, and the merge writes only
+the 4096-row blocks that can hold live rows (``bound``, a host-known upper
+bound of ``p``: rows per round times rounds since the flush, no device
+read).  A flush refills both pairs (reset_pending).  So pending_add
+CONSUMES the index it is given: its planes become the result's spare pair
+and are overwritten by the next pending_add.
 """
 
 import dataclasses
+import typing
 
 import torch
 
@@ -41,6 +53,11 @@ class PendingIndex:
     psym: torch.Tensor  # int8[pcap]
     blk_prefix: torch.Tensor  # int32[pcap // KP + 1, 6]
     p: torch.Tensor  # int64 0-dim
+    # the (vp, psym) pair the next pending_add writes, INF/PAD at or past
+    # p; None: that merge takes fresh planes
+    spare: typing.Optional[tuple] = None
+    # host-known upper bound of p; None: unknown (the capacity)
+    bound: typing.Optional[int] = None
 
     @property
     def cap(self) -> int:
@@ -66,11 +83,27 @@ def empty_pending(pcap: int, device) -> PendingIndex:
         blk_prefix=torch.zeros((pcap // KP + 1, NSYM), dtype=torch.int32,
                                device=device),
         p=torch.zeros((), dtype=torch.int64, device=device),
+        spare=pending_cuda.fresh_planes(pcap, device),
+        bound=0,
     )
 
 
 def reset_pending(pend: PendingIndex) -> PendingIndex:
-    return empty_pending(pend.cap, pend.vp.device)
+    """The empty index of pend's capacity, in pend's own planes: both pairs
+    are refilled with INF/PAD in place, over the blocks a merge since the
+    last reset can have written (all of them when the bound is unknown)."""
+    pcap = pend.cap
+    hi = pending_cuda.n_blocks(pcap, pend.bound) * pending_cuda.BS
+    pairs = [(pend.vp, pend.psym),
+             pend.spare or pending_cuda.fresh_planes(pcap, pend.vp.device)]
+    for vp, psym in pairs:
+        vp[:hi].fill_(INF)
+        psym[:hi].fill_(PAD)
+    return PendingIndex(
+        vp=pairs[0][0], psym=pairs[0][1],
+        blk_prefix=torch.zeros_like(pend.blk_prefix),
+        p=torch.zeros_like(pend.p), spare=pairs[1], bound=0,
+    )
 
 
 def pending_rank(pend: PendingIndex, g):
@@ -103,13 +136,18 @@ def pending_add(pend: PendingIndex, gX, sym, stream, active) -> PendingIndex:
     ranks unique in [0, A) over the A active rows); sym: int64[M];
     active: bool[M].  The old rows and the row counts come from the
     pending merge kernel (pending_cuda.merge), whose plain version is
-    merge_rows below."""
+    merge_rows below.  ``pend`` is consumed: the result is written into
+    its spare planes, and its own planes become the result's spare."""
     varr, sarr, start_new, p_after = new_rows(pend, gX, sym, stream, active)
+    pcap = pend.cap
+    bound = min(pcap, (pcap if pend.bound is None else pend.bound)
+                + gX.shape[0])
     vp, psym, rows = pending_cuda.merge(
-        pend.vp, pend.psym, varr, sarr, start_new, p_after
+        pend.vp, pend.psym, varr, sarr, start_new, p_after, pend.spare, bound
     )
     return PendingIndex(vp=vp, psym=psym,
-                        blk_prefix=prefix_rows(rows, torch.int32), p=p_after)
+                        blk_prefix=prefix_rows(rows, torch.int32), p=p_after,
+                        spare=(pend.vp, pend.psym), bound=bound)
 
 
 def new_rows(pend: PendingIndex, gX, sym, stream, active):
@@ -118,7 +156,9 @@ def new_rows(pend: PendingIndex, gX, sym, stream, active):
     with k[r] = |{ i : vp[i] < gX[r] }| (the JAX package's proof), where
     varr holds its virtual position gX + stream and sarr its symbol + 1;
     start_new is the exclusive prefix of new rows per kernel block,
-    counted from the M rows rather than from the pcap slots."""
+    counted from the M rows rather than from the pcap slots.  varr is
+    meaningful at the new slots only (the merge reads it nowhere else), so
+    its other slots are not filled."""
     pcap = pend.cap
     dev = pend.vp.device
     k = torch.searchsorted(
@@ -127,7 +167,7 @@ def new_rows(pend: PendingIndex, gX, sym, stream, active):
     slot = torch.where(active, stream + k, pcap)  # pcap: trash slot
     sarr = torch.zeros(pcap + 1, dtype=torch.int8, device=dev)
     sarr.scatter_(0, slot, torch.where(active, sym + 1, 0).to(torch.int8))
-    varr = torch.zeros(pcap + 1, dtype=torch.int64, device=dev)
+    varr = torch.empty(pcap + 1, dtype=torch.int64, device=dev)
     varr.scatter_(0, slot, gX + stream)
     nb = -(-pcap // pending_cuda.BS)
     blk = torch.zeros(nb + 1, dtype=torch.int64, device=dev)
@@ -137,15 +177,17 @@ def new_rows(pend: PendingIndex, gX, sym, stream, active):
     return varr[:pcap], sarr[:pcap], start_new, pend.p + active.sum()
 
 
-def merge_rows(vp, psym, varr, sarr, start_new, p_after):
+def merge_rows(vp, psym, varr, sarr, start_new, p_after, out, bound=None):
     """Plain version of the pending merge kernel: the JAX package's XLA
     ladder.  New slots (sarr != 0) take (varr, sarr - 1); old rows shift by
     s (the count of new rows before them), are clamped to INF, and move
-    to their merged slot by a log-shift expand.  Returns (vp, psym,
-    row_counts int32[pcap // KP, 6]), as pending_cuda.merge does from the
-    same arguments.  ``start_new`` and ``p_after`` are unused: the expand
-    needs no block prefix, and rows past p_after come out INF/PAD from it.
-    """
+    to their merged slot by a log-shift expand.  As pending_cuda.merge
+    does from the same arguments, it writes the rows below
+    n_blocks(pcap, bound) * BS into the ``out`` planes, leaves the rows
+    past them untouched, and returns (out vp, out psym, row_counts
+    int32[pcap // KP, 6]) with zero count rows past the written blocks.
+    ``start_new`` and ``p_after`` are unused: the expand needs no block
+    prefix, and rows past p_after come out INF/PAD from it."""
     del start_new, p_after
     pcap = vp.shape[0]
     dev = vp.device
@@ -167,9 +209,12 @@ def merge_rows(vp, psym, varr, sarr, start_new, p_after):
                                           vo[:-step]]), vo)
         so = torch.where(take, torch.cat([so.new_full((step,), PAD),
                                           so[:-step]]), so)
-    new_vp = torch.where(is_new, varr, vo)
-    new_sym = torch.where(is_new, sarr - 1, so)
-    return new_vp, new_sym, block_counts(new_sym, KP)
+    hi = pending_cuda.n_blocks(pcap, bound) * pending_cuda.BS
+    out[0][:hi] = torch.where(is_new, varr, vo)[:hi]
+    out[1][:hi] = torch.where(is_new, sarr - 1, so)[:hi]
+    rows = block_counts(out[1], KP)
+    rows[hi // KP:] = 0
+    return out[0], out[1], rows
 
 
 def pending_flush_args(pend: PendingIndex):

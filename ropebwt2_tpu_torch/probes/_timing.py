@@ -138,7 +138,10 @@ def merge_bytes(n: int, ins: int, alloc: int) -> int:
 def merge_packed_bytes(n: int, ins: int, alloc_bytes: int) -> int:
     """Kernel C (csrc/merge_packed.cu): kernel A's model at half a byte
     per symbol for the old buffer, the packed insertion map and the
-    output."""
+    output.  The kernel reads each packed byte of the old run once (whole
+    packed rows, 16 bytes a load) and each map byte once (the two threads
+    that own its planes load it in one warp instruction), and writes each
+    output byte once."""
     live = min(n + ins, 2 * alloc_bytes)
     na = _cdiv(live, BS)
     return (_cdiv(n, 2) + _cdiv(live, 2) + 8 * (na + 1) + 8
@@ -150,8 +153,10 @@ def pending_bytes(pcap: int, p_after: int, new: int) -> int:
     vp, 1 B psym), the new-slot map up to p_after, the new rows' vp and
     the live CTAs' starts; writes both planes of the p_after live rows and
     the live CTAs' count rows.  The rows past p_after hold INF/PAD before
-    the call as after it, so the function need not write them (pending.cu
-    does, into a fresh buffer)."""
+    the call as after it, so the function need not write them: pending.cu
+    writes into planes the caller keeps (two pairs used in turn), only the
+    CTAs below a host-known bound of p_after, and INF/PAD only from
+    p_after to the end of the last such CTA."""
     na = _cdiv(min(p_after, pcap), BS)
     return (9 * (p_after - new) + p_after + 8 * new + 8 * (na + 1) + 8
             + 9 * p_after + na * ROWS_PER_CTA * ROW_BYTES)

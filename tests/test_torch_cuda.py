@@ -74,11 +74,10 @@ def test_merge_kernel_matches_plain(dev, K, case):
     assert torch.equal(got_blk[: live // K + 1], want_blk[: live // K + 1])
 
 
-@pytest.mark.parametrize("frac", [0.0, 0.3, 0.9])
-def test_pending_kernel_matches_plain(dev, frac):
-    rng = np.random.default_rng(int(frac * 10))
-    pcap, m, nmax = 1 << 16, 1 << 13, 1 << 26
-    pfill = int(pcap * frac)
+def _pending_inputs(rng, dev, pcap, pfill, m, a, nmax=1 << 26, run_at=None):
+    """A pending index of pfill rows and one round of m lanes, the first a
+    active; ``run_at``: every lane inserts at the virtual position of that
+    pending row, so the new slots are one run of a rows from there."""
     vp = np.full(pcap, INF, np.int64)
     vp[:pfill] = np.sort(rng.integers(0, nmax - pfill, pfill)) \
         + np.arange(pfill)
@@ -89,18 +88,89 @@ def test_pending_kernel_matches_plain(dev, frac):
         vp=torch.from_numpy(vp).to(dev), psym=ps,
         blk_prefix=build_block_tables(ps, KP, dtype=torch.int32),
         p=torch.tensor(pfill, device=dev))
-    a = min(m, pcap - pfill)
     gX = np.sort(rng.integers(0, nmax, m))
+    if run_at is not None:
+        gX[:] = vp[run_at]
     stream = np.where(np.arange(m) < a, np.arange(m), 0)
     row = [torch.from_numpy(x).to(dev) for x in (
         gX, rng.integers(0, 6, m), stream, np.arange(m) < a)]
+    return pend, row
+
+
+# pcap 2^16, 2^13 lanes; name: (rows held, active lanes, run_at)
+_PENDING_CASES = {
+    "0.0": (0, 1 << 13, None),  # both CTAs all new
+    "0.3": (19660, 1 << 13, None),
+    "0.9": (58982, (1 << 16) - 58982, None),  # fills up: p_after == pcap
+    "nothing": (0, 0, None),  # p_after == 0: the launched CTAs are all dead
+    "ragged": (10000, 1234, None),  # p_after % 4096 != 0, far below pcap
+    "all_new_cta": (30000, 1 << 13, 12345),  # a run of 8192 new slots
+}
+
+
+@pytest.mark.parametrize("case", list(_PENDING_CASES))
+def test_pending_kernel_matches_plain(dev, case):
+    """Kernel B against merge_rows through the ping-pong interface: both
+    write into the same garbage-filled planes with the engine's bound, must
+    agree on every row, and must leave the rows past the written blocks
+    untouched."""
+    rng = np.random.default_rng(len(case) + sum(map(ord, case)))
+    pcap, m = 1 << 16, 1 << 13
+    pfill, a, run_at = _PENDING_CASES[case]
+    pend, row = _pending_inputs(rng, dev, pcap, pfill, m, a, run_at=run_at)
     args = (pend.vp, pend.psym, *new_rows(pend, *row))
+    bound = min(pcap, pfill + m)
+    hi = pending_cuda.n_blocks(pcap, bound) * pending_cuda.BS
+    junk = (torch.from_numpy(rng.integers(0, 1 << 40, pcap)).to(dev),
+            torch.from_numpy(rng.integers(0, 6, pcap).astype(np.int8)).to(dev))
     launches = pending_cuda.LAUNCHES
-    got = pending_cuda.merge(*args)
+    got = pending_cuda.merge(*args, tuple(x.clone() for x in junk), bound)
     torch.cuda.synchronize()
     assert pending_cuda.LAUNCHES == launches + 1
-    for g, w in zip(got, merge_rows(*args)):
+    want = merge_rows(*args, tuple(x.clone() for x in junk), bound)
+    for g, w in zip(got, want):
         assert torch.equal(g, w)
+    assert int(args[-1]) == pfill + a
+    assert torch.equal(got[0][hi:], junk[0][hi:])
+    assert torch.equal(got[1][hi:], junk[1][hi:])
+    assert not got[2][hi // KP:].any()
+    # without planes or a bound: fresh INF/PAD planes, every block written
+    for g, w in zip(pending_cuda.merge(*args), merge_rows(
+            *args, pending_cuda.fresh_planes(pcap, dev))):
+        assert torch.equal(g, w)
+
+
+def test_pending_ping_pong_on_the_card_matches_the_cpu(dev):
+    """pending_add chained over 5 rounds, a reset and 5 more on the card
+    (kernel B, two plane pairs in turn) against the same chain on the CPU
+    (the plain version): every row of both planes, the prefix table and p
+    after every round, and one launch a round."""
+    from ropebwt2_tpu_torch.index.pending import (
+        empty_pending, pending_add, reset_pending,
+    )
+
+    rng = np.random.default_rng(77)
+    pcap, m, rounds = 5 * 4096 + 256, 4096, 5
+    pends = [empty_pending(pcap, d) for d in (dev, "cpu")]
+    launches = pending_cuda.LAUNCHES
+    for r in range(2 * rounds):
+        if r == rounds:
+            pends = [reset_pending(p) for p in pends]
+        a = int(rng.integers(m // 2, m + 1))
+        gX = np.sort(rng.integers(0, 1 << 26, m))
+        stream = np.where(np.arange(m) < a, np.arange(m), 0)
+        lanes = (gX, rng.integers(0, 6, m), stream, np.arange(m) < a)
+        pends = [pending_add(p, *(torch.from_numpy(x).to(p.vp.device)
+                                  for x in lanes)) for p in pends]
+        torch.cuda.synchronize()
+        g, w = pends
+        assert g.bound == w.bound == min(pcap, (r % rounds + 1) * m)
+        assert int(g.p) == int(w.p)
+        assert torch.equal(g.vp.cpu(), w.vp)
+        assert torch.equal(g.psym.cpu(), w.psym)
+        assert torch.equal(g.blk_prefix.cpu(), w.blk_prefix)
+        assert (w.vp[int(w.p):] == INF).all() and (w.psym[int(w.p):] == 6).all()
+    assert pending_cuda.LAUNCHES == launches + 2 * rounds
 
 
 @pytest.mark.parametrize("so", [0, 1, 2])
@@ -129,15 +199,22 @@ def _absolute(blkA, blkB, cap, nblk):
     return blkA[(blks * LANE) >> 24] + blkB[blkb_row(blks, cap // 256)]
 
 
-@pytest.mark.parametrize("case", ["random", "dense", "garbage", "masked"])
+@pytest.mark.parametrize("case", ["random", "dense", "garbage", "masked",
+                                  "mixed", "aligned"])
 def test_merge_packed_kernel_matches_plain(dev, case):
     """Kernel C against apply_insertions_packed + build_two_level_tables;
     the garbage case also has a capacity that is not a multiple of the
     CTA's 4096 symbols, so its last CTA is ragged, and the masked case
     leaves three lanes in four inactive, as a flush of a part-filled
-    pending set does."""
+    pending set does.  The mixed case has CTAs with no insertion (every
+    thread copies its window), 6000 insertions at one position (CTAs that
+    are all insertions) and sparse ones after them, so old runs start at
+    symbol 0, inside a packed row (17 rows staged) and on a row boundary;
+    the aligned case inserts 256 at a time, so every old run starts on a
+    packed row."""
     rng = np.random.default_rng(50 + len(case))
-    cap, m = (1 << 20) + (768 if case == "garbage" else 0), 4096
+    cap = (1 << 20) + (768 if case == "garbage" else 0)
+    m = 8192 if case == "mixed" else 4096
     n = cap - m - 7
     syms = np.full(cap + 2 * LANE * PPAD_ROWS, 6, np.int8)
     syms[:n] = rng.integers(0, 6, n)
@@ -149,6 +226,12 @@ def test_merge_packed_kernel_matches_plain(dev, case):
     if case == "dense":
         pos[: a // 2] = n // 2
         pos[:a] = np.sort(pos[:a])
+    elif case == "mixed":
+        pos[:6000] = 40 * 4096 + 77
+        pos[6000:a] = np.sort(rng.integers(n // 2, n + 1, a - 6000))
+    elif case == "aligned":
+        pos[:a] = np.sort(rng.integers(0, n // 256, a // 256)).repeat(256) \
+            * 256
     stream = np.where(np.arange(m) < a, np.arange(m), 0)
     pb, pos, sym, stream, valid, nt = [torch.from_numpy(x).to(dev) for x in (
         pack_bwt_np(syms), pos, rng.integers(0, 6, m), stream,

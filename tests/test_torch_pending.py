@@ -5,7 +5,12 @@ formulation (int64 positions) and the Pallas kernel in interpret mode
 
 Every comparison is exact (integers).  Empty rows hold each package's own
 sentinel, so vp is compared on the live rows and checked to be INF past
-them."""
+them.
+
+The port keeps two plane pairs and writes them in turn, only the
+4096-row blocks that can hold live rows (pending.py's module docstring);
+the chained tests hold that against the JAX package's functional
+pending_add on every row of the capacity, across a flush."""
 
 import numpy as np
 import pytest
@@ -155,6 +160,102 @@ def test_pending_from_numpy_carries_an_int32_index():
                                  (1 << 17, 3)])
 def test_pending_cap_matches_jax(m, R):
     assert tp.pending_cap(m, R) == jp.pending_cap(m, R)
+
+
+def _lanes(rng, m, a):
+    gX, sym, stream, active = _round(rng, m, a, np.int64)
+    return gX, sym.astype(np.int64), stream, active
+
+
+def _chain(rng, pcap, m, R, reset=tp.reset_pending):
+    """R rounds, a flush (both packages' reset_pending), R more rounds:
+    after every round the port's index equals the JAX package's on all
+    pcap rows (vp as int64, psym, blk_prefix, p), its tail holds INF/PAD,
+    and its bound is rows per round times rounds since the flush."""
+    want = jp.empty_pending(pcap, jnp.int64)
+    got = tp.empty_pending(pcap, "cpu")
+    assert got.bound == 0 and got.spare is not None
+    for r in range(2 * R):
+        if r == R:
+            want, got = jp.reset_pending(want), reset(got)
+            assert int(got.p) == 0 and not got.blk_prefix.any()
+        lanes = _lanes(rng, m, int(rng.integers(m // 2, m + 1)))
+        want = jp.pending_add(want, *map(jnp.asarray, lanes))
+        got = tp.pending_add(got, *map(torch.from_numpy, lanes))
+        assert got.bound == min(pcap, (r % R + 1) * m)
+        assert int(got.p) <= got.bound
+        _assert_same(got, want, pcap // tp.KP + 1)
+        assert (got.psym.numpy()[int(got.p):] == 6).all()
+
+
+@pytest.mark.parametrize("pcap,m,R", [(4 * 4096, 1024, 6),
+                                      (2 * 4096 + 256, 512, 5),
+                                      (3 * 4096, 4096, 3)])
+def test_pending_ping_pong_matches_jax(pcap, m, R):
+    _chain(np.random.default_rng(pcap + R), pcap, m, R)
+
+
+def test_pending_chain_catches_a_reset_that_forgets_the_spare_planes():
+    """The chained comparison is what guards the ping-pong hygiene: with a
+    reset that refills only the planes that hold the rows, the first merge
+    after the flush writes into a spare pair whose rows past the written
+    block (here over 5000 rows were live, and one block is written) still
+    hold the rows of before the flush."""
+    def forgetful(pend):
+        kept = tuple(x.clone() for x in pend.spare)
+        new = tp.reset_pending(pend)
+        for dst, src in zip(new.spare, kept):
+            dst.copy_(src)
+        return new
+
+    with pytest.raises(AssertionError):
+        _chain(np.random.default_rng(3), 4 * 4096, 1024, 8, reset=forgetful)
+
+
+def test_pending_add_without_spare_planes_takes_fresh_ones():
+    """An index carried in without spare planes or a bound (convert.py):
+    the first merge writes every block of fresh planes, the next ones turn
+    between those and the carried planes."""
+    rng = np.random.default_rng(12)
+    pcap, m = 2 * 4096, 512
+    want = _jax_pending(*_pending_np(rng, pcap, 3000, np.int64), 3000)
+    got = _torch_pending(want)
+    assert got.spare is None and got.bound is None
+    carried = got.vp
+    for r in range(3):
+        lanes = _lanes(rng, m, m - 7)
+        want = jp.pending_add(want, *map(jnp.asarray, lanes))
+        got = tp.pending_add(got, *map(torch.from_numpy, lanes))
+        assert got.bound == pcap
+        assert (got.vp is carried) == (r == 1)
+        _assert_same(got, want, pcap // tp.KP + 1)
+
+
+@pytest.mark.parametrize("bound", [0, 1, 4096, 4097, 3 * 4096, None])
+def test_merge_rows_with_a_bound_leaves_the_rows_past_its_blocks(bound):
+    """merge_rows (and pending_cuda.merge on the CPU) writes the blocks
+    below ceil(bound / 4096) * 4096 of the planes it is given and nothing
+    past them; the count rows past them are 0."""
+    rng = np.random.default_rng(21)
+    pcap, m, pfill, a = 4 * 4096, 512, 300, 400
+    pend = _torch_pending(_jax_pending(
+        *_pending_np(rng, pcap, pfill, np.int64), pfill))
+    args = (pend.vp, pend.psym,
+            *tp.new_rows(pend, *map(torch.from_numpy, _lanes(rng, m, a))))
+    full = tp.merge_rows(*args, pending_cuda.fresh_planes(pcap, "cpu"))
+    junk = (torch.from_numpy(rng.integers(0, 1 << 40, pcap)),
+            torch.from_numpy(rng.integers(0, 6, pcap).astype(np.int8)))
+    hi = pcap if bound is None else -(-bound // 4096) * 4096
+    for fn in (tp.merge_rows, pending_cuda.merge):
+        planes = tuple(x.clone() for x in junk)
+        vp, psym, rows = fn(*args, planes, bound)
+        assert vp is planes[0] and psym is planes[1]
+        assert torch.equal(vp[:hi], full[0][:hi])
+        assert torch.equal(psym[:hi], full[1][:hi])
+        assert torch.equal(vp[hi:], junk[0][hi:])
+        assert torch.equal(psym[hi:], junk[1][hi:])
+        assert torch.equal(rows[: hi // tp.KP], full[2][: hi // tp.KP])
+        assert not rows[hi // tp.KP:].any()
 
 
 def test_pending_wrapper_refuses_other_devices():
