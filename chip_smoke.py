@@ -10,8 +10,11 @@ Phases, each reported on its own line:
    csrc/probes (one nvcc per source, all started together), and time it;
 2. kernel A (merge) against its plain version on the card, at the batch
    shape (cap 2^24, 2^17 insertions), at the flush shape (cap 147,062,784,
-   2^20 insertions) and on a dense case; the kernel alone beside the
-   wrapper, and its bound;
+   2^20 insertions) and on a dense case: the wrapper's buffer and K-block
+   tables, and the kernel alone (run_kernel: buffer and 128-symbol rank
+   prefix) with int32 and int64 rows; the kernel alone beside the whole
+   wrapper (eager and on the device) and the earlier kernel's and
+   wrapper's times, and its bound;
 2b. kernel C (packed merge) against its plain version at the every-round
    shape (cap 2^24, 2^17 insertions), on a dense case with a ragged last
    block, on a mixed case (CTAs with no insertion, whose old runs start at
@@ -70,8 +73,9 @@ the card's 3.35 TB/s, probes/_timing.py), the library call's where one
 PyTorch call computes the same function, and its launches by path.
 
 Kernels A, B and C are timed alone as a CUDA graph of their bare launch
-(the profiler's figure beside it as a check); B's and C's times of the
-scalar kernels that this design replaced are printed beside the new ones.
+(A's with the reset of its look-back status words; the profiler's figure
+beside it as a check); the times of the kernels that these designs
+replaced are printed beside the new ones.
 
 Every comparison is exact (integer data: max_abs_err must be 0).  The
 script fails with a nonzero exit, and prints no result line, when there
@@ -130,14 +134,18 @@ FLUSH_ACTIVE = 6 << 20  # active lanes of the packed flush case
 # per round, the pending set half full (its mean over a flush cycle)
 PEND_CAPACITY = (1 << 24, 1 << 20, CAP_SCALE, 0.5)
 PEND_CHAIN = 4  # chained rounds of kernel B before and after a reset
-# kernel ms of the scalar kernels B and C that this design replaced, from
-# this script on an NVIDIA H100 80GB HBM3 at 700 W, printed beside the new
-# times: B by (pcap, share full), C by case
+# kernel ms of the kernels that the present designs replaced, from this
+# script (the merge wrapper's: probe F, whole wrapper on the device) on an
+# NVIDIA H100 80GB HBM3 at 700 W, printed beside the new times: B by
+# (pcap, share full), C by case, A and its wrapper by (kernel, case)
 EARLIER_MS = {
     (1 << 20, 0.0): 0.0248, (1 << 20, 0.3): 0.0233, (1 << 20, 0.9): 0.0311,
     (1 << 24, 0.5): 0.4612,
     "round": 0.0482, "dense": 0.0177, "chunks": 0.7225, "sustained": 0.3989,
     "flush": 5.9672,
+    ("merge", "batch"): 0.0351, ("merge", "flush"): 0.2630,
+    ("merge", "dense"): 0.0125,
+    ("wrapper", "batch"): 0.2626, ("wrapper", "flush"): 2.2789,
 }
 
 
@@ -276,11 +284,14 @@ def insertions(gen, m, n, dense, a=None):
 
 def merge_case(gen, cap, m, n, dense, K=128):
     """Random live prefix of n symbols (garbage past it), m sorted
-    insertions; holds the kernel's result on the live prefix and its table
-    rows against the plain version's.  Returns max_abs_err, the wrapper's,
-    the plain version's and the kernel's own times (CUDA events on
-    merge_cuda.run_kernel in a CUDA graph, and the profiler), and the
-    kernel's bound."""
+    insertions; holds the wrapper's result on the live prefix and its
+    table rows against the plain version's, and the kernel alone
+    (run_kernel) against its plain version merge_blocks with int32 and
+    with int64 prefix rows.  Returns max_abs_err, the wrapper's times
+    (eager, and on the device as a CUDA graph), the plain version's, the
+    kernel's own (a CUDA graph of merge_cuda.run_kernel, which holds the
+    reset of the look-back's status words, and the profiler's figure of
+    the kernel alone), and the kernel's bound."""
     import torch
     from ropebwt2_tpu_torch.index import merge_cuda
     from ropebwt2_tpu_torch.index.flat import PAD_TAIL, table_dtype
@@ -308,18 +319,33 @@ def merge_case(gen, cap, m, n, dense, K=128):
     live = n + a
     err = max(max_abs_diff(got[:live], ref[:live]),
               max_abs_diff(got_blk[: live // K + 1], ref_blk[: live // K + 1]))
+    del ref, ref_blk, got, got_blk
+
     def kern():
         return merge_cuda.merge(bwt, pos, sym, stream, valid, nt, K)
 
     nb = -(-alloc // merge_cuda.BS)
     dest, insmap = merge_cuda.insertion_map(pos, sym, stream, valid, nb)
     start = merge_cuda.block_prefix(dest, nb)
-    return {"err": err, "wrapper_ms": time_ms(kern),
+    rows = live // merge_cuda.LANE + 1
+    errs = {}
+    for dt in (torch.int32, torch.int64):
+        k_out, k_pre = merge_cuda.run_kernel(bwt, insmap, start, nt, dt)
+        p_out, p_pre = merge_cuda.merge_blocks(bwt, insmap, start, nt, dt)
+        errs[str(dt)[6:]] = max(max_abs_diff(k_out[:live], p_out[:live]),
+                                max_abs_diff(k_pre[:rows], p_pre[:rows]))
+        del k_out, k_pre, p_out, p_pre
+    torch.cuda.empty_cache()
+    tdt = table_dtype(cap)
+    return {"err": max(err, *errs.values()), "kernel_err": errs,
+            "wrapper_ms": time_ms(kern),
+            "wrapper_device_ms": _timing.graph_ms(kern),
             "plain_ms": time_ms(plain),
             "ms": _timing.graph_ms(lambda: merge_cuda.run_kernel(
-                bwt, insmap, start, nt)),
+                bwt, insmap, start, nt, tdt)),
             "profiled_ms": kernel_ms(kern, "merge_kernel"),
-            "bound_ms": _timing.bound_ms(_timing.merge_bytes(n, a, alloc))}
+            "bound_ms": _timing.bound_ms(_timing.merge_bytes(
+                n, a, alloc, tile=merge_cuda.tile_blocks(nb)))}
 
 
 def phase_merge(torch):
@@ -328,10 +354,18 @@ def phase_merge(torch):
     for name, cap, m, n, dense in MERGE_CASES:
         r = merge_case(gen, cap, m, n, dense)
         say(f"[2] merge {name}: cap {cap} M {m} n {n} max_abs_err "
-            f"{r['err']} (tolerance 0) wrapper {r['wrapper_ms']:.4f} ms "
-            f"plain {r['plain_ms']:.4f} ms kernel alone {r['ms']:.4f} ms "
-            f"(profiler {fmt_ms(r['profiled_ms'])}), bound "
-            f"{r['bound_ms']:.4f} ms, share {r['bound_ms'] / r['ms']:.3f}")
+            f"{r['err']} (tolerance 0; the kernel alone against "
+            f"merge_blocks with int32 / int64 rows: "
+            f"{r['kernel_err']['int32']} / {r['kernel_err']['int64']}) "
+            f"wrapper {r['wrapper_ms']:.4f} ms eager, "
+            f"{r['wrapper_device_ms']:.4f} ms on the device (the earlier "
+            f"wrapper {fmt_ms(EARLIER_MS.get(('wrapper', name)))}), plain "
+            f"{r['plain_ms']:.4f} ms, kernel alone {r['ms']:.4f} ms with "
+            f"its status reset (profiler, kernel only: "
+            f"{fmt_ms(r['profiled_ms'])}; the earlier kernel "
+            f"{fmt_ms(EARLIER_MS.get(('merge', name)))} and its tables "
+            f"apart), bound {r['bound_ms']:.4f} ms, share "
+            f"{r['bound_ms'] / r['ms']:.3f}")
         if r["err"] != 0:
             raise AssertionError(f"merge kernel disagrees ({name})")
         out[name] = r
@@ -1026,8 +1060,8 @@ def kernel_table(merge_res, packed_res, pend_res, paths, probes):
                 "library_ms": r.get("library_ms"), **extra}
 
     def shapes(res):
-        return {k: {f: v[f] for f in ("ms", "wrapper_ms", "plain_ms",
-                                      "bound_ms")}
+        return {k: {f: v[f] for f in ("ms", "wrapper_ms", "wrapper_device_ms",
+                                      "plain_ms", "bound_ms") if f in v}
                 for k, v in res.items()}
 
     pend = {f"pcap {k[0]} {int(100 * k[1])}% full": v

@@ -43,8 +43,9 @@ FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _P = ctypes.c_void_p
 _I = ctypes.c_longlong
 ENTRY_POINTS = {
-    # old, insmap, start, n, out, rows, alloc, nb, stream
-    "rb2_merge": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # old, insmap, start, n, out, prefix, scratch, alloc, nb, G, wide,
+    # stream
+    "rb2_merge": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # old, insmap, start, n, out, rows, alloc_bytes, nb, stream
     "rb2_merge_packed": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     # vp, psym, varr, sarr, start, p_after, vp_out, psym_out, rows,

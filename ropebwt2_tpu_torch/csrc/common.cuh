@@ -58,9 +58,14 @@ __device__ __forceinline__ void write_row_counts(int (&cs)[NSYM],
   }
 }
 
-// ---- helpers of the coalesced kernels (pending.cu, merge_packed.cu) ----
+// ---- helpers of the coalesced kernels (merge, pending, merge_packed) ----
 
 constexpr uint32_t PAD_WORD = 0x01010101u * PAD;  // four PAD bytes
+
+// the number of bytes of x that are not 0 (every byte < 0x80)
+__device__ __forceinline__ int nonzero_bytes(uint32_t x) {
+  return __popc((x + 0x7F7F7F7Fu) & 0x80808080u);
+}
 
 // The 16 bytes at byte offset `off` (any alignment) of a 16-byte-aligned
 // shared buffer: five aligned words funnel-shifted with __byte_perm.  The

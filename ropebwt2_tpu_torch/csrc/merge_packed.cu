@@ -70,11 +70,6 @@ constexpr int WIN = WIN_ROWS * PROW;     // 4352 staged symbols
 constexpr uint32_t NIB = 0x0F0F0F0Fu;
 constexpr uint32_t PAD_BOTH = PAD_WORD | PAD_WORD << 4;  // PAD in both planes
 
-// the number of bytes of x that are not 0 (every byte < 0x80)
-__device__ __forceinline__ int nonzero_bytes(uint32_t x) {
-  return __popc((x + 0x7F7F7F7Fu) & 0x80808080u);
-}
-
 __global__ void __launch_bounds__(THREADS)
 merge_packed_kernel(const uint8_t* __restrict__ old,
                     const uint8_t* __restrict__ insmap,

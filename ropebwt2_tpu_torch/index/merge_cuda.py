@@ -9,8 +9,9 @@ on CUDA tensors it launches the kernel, or raises.
 On the card ``merge`` is four steps, each a function of its own so that
 the probe suite (probes/merge_phases.py) times the same code the build
 runs: ``insertion_map`` (zero-fill and scatter), ``block_prefix`` (per-CTA
-insertion prefix), ``run_kernel`` (kernel A alone) and ``tables`` (the
-K-block prefix from the kernel's row counts)."""
+insertion prefix), ``run_kernel`` (kernel A alone: the new buffer and its
+128-symbol rank prefix in one pass) and ``tables`` (the K-block rows of
+that prefix: a slice, no sum)."""
 
 import torch
 
@@ -21,6 +22,7 @@ from .rank import build_block_tables, prefix_rows
 
 BS = 4096  # output symbols per CTA (csrc/common.cuh)
 LANE = 128  # symbols per count row
+ROWS = BS // LANE  # count rows per CTA
 LAUNCHES = 0  # kernel launches by this process (CUDA-graph captures not)
 
 
@@ -39,8 +41,8 @@ def merge(bwt, pos, sym, stream, valid, n, K: int):
     _check(bwt, pos, sym, stream, valid, n, K)
     nb = -(-bwt.shape[0] // BS)
     dest, insmap = insertion_map(pos, sym, stream, valid, nb)
-    out, rows = run_kernel(bwt, insmap, block_prefix(dest, nb), n)
-    return out, tables(rows, bwt.shape[0], K, cap_tdt)
+    out, prefix = run_kernel(bwt, insmap, block_prefix(dest, nb), n, cap_tdt)
+    return out, tables(prefix, bwt.shape[0], K)
 
 
 def insertion_map(pos, sym, stream, valid, nb: int):
@@ -62,46 +64,60 @@ def block_prefix(dest, nb: int):
     return torch.cat([blk.new_zeros(1), torch.cumsum(blk[:nb], 0)])
 
 
-def run_kernel(bwt, insmap, start, n):
-    """(out, rows): kernel A alone on a prepared insertion map and block
-    prefix.  out is int8[alloc], exact up to n + start[-1]; rows is
-    int32[nb * 32, 6], the symbol counts of every 128 output symbols
-    (zero for CTAs wholly past the live prefix).  On CPU tensors it runs
+def run_kernel(bwt, insmap, start, n, dtype, tile=None):
+    """(out, prefix): kernel A alone on a prepared insertion map and block
+    prefix.  out is int8[alloc], exact up to L = n + start[-1]; prefix is
+    dtype[nb * 32 + 1, 6], the count of each symbol in out[0, 128 r) at
+    row r, exact in rows 0 .. L // 128 and unspecified past them.
+    ``tile``: the 4096-symbol blocks a CTA takes, 1 to 8 (tile_blocks(nb)
+    by default; the probes time the others).  On CPU tensors it runs
     ``merge_blocks``, the kernel's plain version."""
     if bwt.device.type == "cpu":
-        return merge_blocks(bwt, insmap, start, n)
+        return merge_blocks(bwt, insmap, start, n, dtype)
     global LAUNCHES
     alloc = bwt.shape[0]
     nb = -(-alloc // BS)
-    _check_kernel_args(bwt, insmap, start, n, nb)
+    _check_kernel_args(bwt, insmap, start, n, nb, dtype)
+    g = tile or tile_blocks(nb)
     out = torch.empty_like(bwt)
-    rows = torch.empty((nb * (BS // LANE), 6), dtype=torch.int32,
-                       device=bwt.device)
+    prefix = torch.empty((nb * ROWS + 1, 6), dtype=dtype, device=bwt.device)
+    # the look-back's status words (6 a tile) and the ticket counter,
+    # zeroed on the launch's stream (a CUDA graph records the reset with
+    # the launch)
+    scratch = torch.zeros(6 * -(-nb // g) + 1, dtype=torch.int64,
+                          device=bwt.device)
     rc = _build.lib().rb2_merge(
         bwt.data_ptr(), insmap.data_ptr(), start.data_ptr(), n.data_ptr(),
-        out.data_ptr(), rows.data_ptr(), alloc, nb,
+        out.data_ptr(), prefix.data_ptr(), scratch.data_ptr(), alloc, nb, g,
+        int(dtype == torch.int64),
         torch.cuda.current_stream(bwt.device).cuda_stream,
     )
     _build.check(rc, "rb2_merge")
     if not torch.cuda.is_current_stream_capturing():  # a capture launches none
         LAUNCHES += 1
-    return out, rows
+    return out, prefix
 
 
-def tables(rows, alloc: int, K: int, dtype):
-    """The K-block rank prefix (rank.prefix_rows) from the kernel's
-    per-128-symbol rows."""
-    cnt = rows[: alloc // LANE]
-    if K != LANE:
-        cnt = cnt.view(-1, K // LANE, 6).sum(dim=1, dtype=torch.int32)
-    return prefix_rows(cnt, dtype)
+def tile_blocks(nb: int) -> int:
+    """The 4096-symbol blocks of one CTA of kernel A (a tile of its
+    look-back), from the allocation's nb blocks: the look-back costs a
+    step a tile, so a large allocation takes 8 blocks a CTA; a small one
+    takes fewer, so that its live blocks still spread over the SMs."""
+    return 2 if nb <= 2048 else 4 if nb <= 8192 else 8
 
 
-def merge_blocks(old, insmap, start, n):
+def tables(prefix, alloc: int, K: int):
+    """The K-block rank prefix, dtype[alloc // K + 1, 6]: the rows of the
+    kernel's 128-symbol prefix at multiples of K (no sum, no scan)."""
+    return prefix[: alloc // LANE + 1: K // LANE].contiguous()
+
+
+def merge_blocks(old, insmap, start, n, dtype):
     """Kernel A's plain version at the kernel's own interface (see
     ``run_kernel``): output position p takes insmap[p] - 1 where that is
     not 0, else old[p - c(p)] (PAD past the allocation), with c(p) the
-    insertions at or before p."""
+    insertions at or before p; the prefix counts every 128 output symbols
+    of all nb * 4096, whatever lies past the live end."""
     alloc = old.shape[0]
     nb = start.shape[0] - 1
     ins = insmap[: nb * BS].view(nb, BS)
@@ -113,8 +129,7 @@ def merge_blocks(old, insmap, start, n):
     sym = out.view(-1, LANE)
     rows = torch.stack([(sym == s).sum(dim=1, dtype=torch.int32)
                         for s in range(6)], dim=1)
-    live = (p[:, 0] < n + start[nb]).repeat_interleave(BS // LANE)
-    return out[:alloc], torch.where(live[:, None], rows, 0)
+    return out[:alloc], prefix_rows(rows, dtype)
 
 
 def _check(bwt, pos, sym, stream, valid, n, K):
@@ -128,16 +143,20 @@ def _check(bwt, pos, sym, stream, valid, n, K):
     check_lanes("merge", bwt.device, pos, sym, stream, valid, n)
 
 
-def _check_kernel_args(bwt, insmap, start, n, nb):
+def _check_kernel_args(bwt, insmap, start, n, nb, dtype):
     if not bwt.is_cuda:
         raise ValueError(f"run_kernel: unsupported device {bwt.device}")
     if (bwt.dtype != torch.int8 or bwt.dim() != 1 or not bwt.is_contiguous()
-            or bwt.shape[0] % LANE):
-        raise ValueError("run_kernel: bwt must be a contiguous 1-D int8 "
-                         f"tensor whose size is a multiple of {LANE}")
+            or bwt.shape[0] % LANE or bwt.data_ptr() % 16):
+        raise ValueError("run_kernel: bwt must be a contiguous, 16-byte "
+                         "aligned 1-D int8 tensor whose size is a multiple "
+                         f"of {LANE}")
+    if dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"run_kernel: prefix dtype {dtype} is not int32 or "
+                         "int64")
     for name, t, dt, ok in (
         ("insmap", insmap, torch.int8, insmap.dim() == 1
-         and insmap.shape[0] >= nb * BS),
+         and insmap.shape[0] >= nb * BS and insmap.data_ptr() % 16 == 0),
         ("start", start, torch.int64, tuple(start.shape) == (nb + 1,)),
         ("n", n, torch.int64, n.dim() == 0),
     ):

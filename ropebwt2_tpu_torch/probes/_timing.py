@@ -25,6 +25,7 @@ BS = 4096  # symbols (or pending rows) per CTA of kernels A, B, C
 CAP_FLUSH = 147_062_784  # the capacity of bench.py's sustained plan
 M_FLUSH = 1 << 20  # the insertions of one pending flush there (R = 8)
 ROW_BYTES = 6 * 4  # one int32 count row of the 6 symbols
+STATUS_BYTES = 6 * 8  # kernel A's look-back status: a 64-bit word a symbol
 ROWS_PER_CTA = BS // 128
 STAGE_THREADS = 256  # threads per CTA of the stage kernels (common.cuh)
 
@@ -124,15 +125,20 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def merge_bytes(n: int, ins: int, alloc: int) -> int:
+def merge_bytes(n: int, ins: int, alloc: int, width: int = 4,
+                tile: int = 1) -> int:
     """Kernel A (csrc/merge.cu): reads the n live old symbols and the
     insertion map up to the new live end L = n + ins, one start entry per
-    live CTA and n; writes L output symbols and the count rows of the live
-    CTAs (merge_cuda.merge leaves the rows past L unspecified)."""
+    live 4096-symbol block and n; writes L output symbols, the rank prefix
+    rows of the live blocks and the zero row (6 entries of ``width`` bytes
+    a row: 4 for int32 tables, 8 for int64; merge_cuda.run_kernel leaves
+    the rows past L unspecified), and the look-back's status words of the
+    live tiles of ``tile`` blocks (STATUS_BYTES each)."""
     live = min(n + ins, alloc)
     na = _cdiv(live, BS)
-    return (n + live + 8 * (na + 1) + 8
-            + live + na * ROWS_PER_CTA * ROW_BYTES)
+    return (n + live + 8 * (na + 1) + 8 + live
+            + (na * ROWS_PER_CTA + 1) * 6 * width
+            + _cdiv(na, tile) * STATUS_BYTES)
 
 
 def merge_packed_bytes(n: int, ins: int, alloc_bytes: int) -> int:
@@ -171,11 +177,13 @@ def windows_bytes(nwin: int, win: int = BS) -> int:
 def stage_bytes(stage: str, ctas: int) -> int:
     """One pass of one of kernel A's stages over ``ctas`` CTAs: the part
     of kernel A's bytes that the stage moves (the old window read, the
-    insertion map read, the output written, the count rows written).
-    The four add up to merge_bytes with every CTA live.  Only a reference
-    for the looped stages, which run on data held on the chip."""
+    insertion map read, the output written, the int32 prefix rows and the
+    look-back's status words written).  The four add up to merge_bytes
+    with every CTA live, less the start entries and the zero row.  Only a
+    reference for the looped stages, which run on data held on the
+    chip."""
     per_cta = {"window": BS, "scan": BS, "gather": BS,
-               "counts": ROWS_PER_CTA * ROW_BYTES}[stage]
+               "counts": ROWS_PER_CTA * ROW_BYTES + STATUS_BYTES}[stage]
     return ctas * per_cta
 
 
@@ -187,8 +195,8 @@ def stage_bound_ms(stage: str, ctas: int, iters: int) -> float:
     the HBM rate, shared by its ``iters`` passes.  A pass reads the
     window from L1 and stages it in shared memory (window), reads the
     insertion map (scan), reads the staged window and writes the output
-    (gather), or writes the count rows of symbols held in registers
-    (counts)."""
+    (gather), or writes the CTA's in-CTA prefix rows of symbols held in
+    registers (counts)."""
     rows = ROWS_PER_CTA * ROW_BYTES
     onchip = {"window": 2 * BS, "scan": BS, "gather": 2 * BS,
               "counts": rows}[stage]

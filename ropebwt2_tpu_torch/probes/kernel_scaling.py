@@ -11,6 +11,10 @@ ping-pongs two buffers), at the same shapes with no insertions, as the
 script ran, and at the main path's flush shape (cap 147,062,784, 2^20
 insertions, live to the end).
 
+At the flush shape it also times kernel A with 1, 2, 4 and 8 blocks a CTA
+(``tile_sweep``): the tile of its look-back, whose steps cost what the
+number of tiles does.
+
 A shape whose working set (old and new live prefix, insertion map) fits
 the 50 MB L2 is marked L2-warm: its chain runs out of the cache.  For it
 the probe also chains each call behind a 64 MB write that evicts the L2,
@@ -26,7 +30,7 @@ import torch
 from . import _timing
 from ..index.flat import PAD_TAIL
 from ..index.merge_cuda import (
-    BS, block_prefix, insertion_map, merge_blocks, run_kernel,
+    BS, block_prefix, insertion_map, merge_blocks, run_kernel, tile_blocks,
 )
 
 SUPER = 131_072  # symbols per TPU super-block (merge_pallas.SUPER_B)
@@ -65,18 +69,19 @@ def prepare(cap: int, n: int, m: int, seed: int, device):
 
 def check(say=print, device="cuda"):
     """Kernel A at the flush shape against merge_cuda.merge_blocks, its
-    plain version at the kernel's interface, on the card: the live CTAs'
-    output and every count row.  Returns max_abs_err."""
+    plain version at the kernel's interface, on the card: the output and
+    the rank prefix rows of the live prefix.  Returns max_abs_err."""
     _, cap, n, m = cases()[-1]
     bwt, insmap, start, nt = prepare(cap, n, m, 7, device)
-    got, grows = run_kernel(bwt, insmap, start, nt)
-    want, wrows = merge_blocks(bwt, insmap, start, nt)
-    live = min(-(-(n + m) // BS) * BS, bwt.shape[0])
+    got, gpre = run_kernel(bwt, insmap, start, nt, torch.int32)
+    want, wpre = merge_blocks(bwt, insmap, start, nt, torch.int32)
+    live = n + m
     err = max(int((got[:live].long() - want[:live].long()).abs().max()),
-              int((grows - wrows).abs().max()))
+              int((gpre[: live // 128 + 1] - wpre[: live // 128 + 1])
+                  .abs().max()))
     say(f"H kernel A at the flush shape against its plain version: "
         f"max_abs_err {err} (tolerance 0)")
-    del got, grows, want, wrows
+    del got, gpre, want, wpre
     torch.cuda.empty_cache()
     return err
 
@@ -93,14 +98,16 @@ def measure(say=print, device="cuda"):
         state = [bwt]
 
         def step(i):
-            state[0] = run_kernel(state[0], insmap, start, nt)[0]
+            state[0] = run_kernel(state[0], insmap, start, nt,
+                                  torch.int32)[0]
 
         def evicted(i):
             evict.fill_(i & 0xFF)
             step(i)
 
         per_call, lo, hi = _timing.chain_ms(step, R_LO, R_HI)
-        nbytes = _timing.merge_bytes(n, m, bwt.shape[0])
+        nbytes = _timing.merge_bytes(
+            n, m, bwt.shape[0], tile=tile_blocks(-(-bwt.shape[0] // BS)))
         warm = 2 * live + n <= _timing.L2_BYTES
         rec = _record(label, cap, n, m, live, per_call, nbytes, warm)
         rec.update(t_lo_ms=lo, t_hi_ms=hi)
@@ -118,6 +125,27 @@ def measure(say=print, device="cuda"):
                             f"subtracted)"))
         del bwt, insmap, start, state
         torch.cuda.empty_cache()
+    rows += tile_sweep(say, device)
+    return rows
+
+
+def tile_sweep(say=print, device="cuda"):
+    """Kernel A at the flush shape with 1, 2, 4 and 8 blocks a CTA (a tile
+    of its look-back): ms per call (a CUDA graph of run_kernel, the reset
+    of its status words included) and share of the bound."""
+    label, cap, n, m = cases()[-1]
+    bwt, insmap, start, nt = prepare(cap, n, m, 1, device)
+    nb = -(-bwt.shape[0] // BS)
+    rows = []
+    for g in (1, 2, 4, 8):
+        ms = _timing.graph_ms(lambda: run_kernel(bwt, insmap, start, nt,
+                                                 torch.int32, tile=g))
+        rec = _record(f"{label}, {g} blocks a tile", cap, n, m, n + m, ms,
+                      _timing.merge_bytes(n, m, bwt.shape[0], tile=g), False)
+        rec["tile"], rec["default"] = g, g == tile_blocks(nb)
+        rows.append(rec)
+        say(_line(rec, "(CUDA graph of the bare launch"
+                       f"{', the default' if rec['default'] else ''})"))
     return rows
 
 

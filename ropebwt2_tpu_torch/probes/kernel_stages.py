@@ -6,10 +6,13 @@ merge kernel's stages (stack+align, segprefix, expand, counts) ITERS =
 kernel of csrc/probes/stages.cu that loops it ITERS times (the script's
 accumulator trick keeps every pass alive):
 
-- ``window``: staging the old window in shared memory (merge.cu:59-63);
-- ``scan``: the insertion flags and block_exclusive_scan (merge.cu:65-73);
-- ``gather``: the gather and the 16-byte store (merge.cu:75-90);
-- ``counts``: the symbol compares and write_row_counts (merge.cu:88-91).
+- ``window``: staging the old window in shared memory as 16-byte chunks;
+- ``scan``: the count of insertion flags and block_exclusive_scan;
+- ``gather``: the 16-byte window copy of a thread without insertions,
+  the walk of one with them, and the 16-byte store;
+- ``counts``: count16_packed, the 8-lane sum of a row and the scan of
+  the CTA's 32 rows (the look-back across CTAs after it cannot be looped
+  inside one CTA).
 
 Each runs for one CTA (latency) and for a full grid of 8 CTAs per SM
 (throughput); the time per pass of the full grid over its CTAs, set
@@ -72,11 +75,18 @@ def counts_plain(sym):
     return rows.sum(dim=1, dtype=torch.int32)
 
 
+def row_prefix_plain(sym):
+    """int32[len / 128, 6]: the inclusive prefix of counts_plain over the
+    32 rows of every 4096 symbols (a CTA's rows)."""
+    rows = counts_plain(sym).view(-1, BS // LANE, 6)
+    return torch.cumsum(rows, 1, dtype=torch.int32).view(-1, 6)
+
+
 PLAIN = {
     "window": lambda d: window_plain(d["old"], d["o0"]),
     "scan": lambda d: scan_plain(d["insmap"], d["g"]),
     "gather": lambda d: gather_plain(d["old"], d["o0"], d["insmap"]),
-    "counts": lambda d: counts_plain(d["sym"]),
+    "counts": lambda d: row_prefix_plain(d["sym"]),
 }
 
 
@@ -113,6 +123,9 @@ def run_stage(stage: str, d: dict, iters: int = ITERS):
             raise ValueError(f"{stage}: {name} must be contiguous on the card")
     if d["insmap"].shape[0] < g * BS + PER or d["o0"].shape[0] != g:
         raise ValueError(f"{stage}: inputs do not cover {g} CTAs")
+    if d["old"].shape[0] % 16:
+        raise ValueError(f"{stage}: the old buffer's size must be a "
+                         "multiple of 16")
     lib = _build.probe_lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     acc = torch.empty(g * THREADS, dtype=torch.int32, device=dev)

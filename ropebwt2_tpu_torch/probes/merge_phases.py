@@ -9,8 +9,9 @@ own functions, the ones merge() runs:
 - ``insertion_map``: the zero-fill of the map and its scatter_;
 - ``block_prefix``: the per-CTA index_add_ and cumsum (the TPU's
   searchsorted);
-- ``kernel``: kernel A alone (run_kernel);
-- ``tables``: the K-fold and prefix_rows;
+- ``kernel``: kernel A alone (run_kernel): the buffer and its 128-symbol
+  rank prefix in one pass;
+- ``tables``: the prefix's rows at multiples of K;
 - ``merge``: the whole wrapper.
 
 At the script's shape and at chip_smoke.py's batch and flush shapes.
@@ -57,9 +58,9 @@ def composed(bwt, pos, sym, stream, valid, n, K):
     nb = -(-bwt.shape[0] // BS)
     dest, insmap = mc.insertion_map(pos, sym, stream, valid, nb)
     start = mc.block_prefix(dest, nb)
-    out, rows = mc.run_kernel(bwt, insmap, start, n)
-    return out, mc.tables(rows, bwt.shape[0], K,
-                          table_dtype(bwt.shape[0] - PAD_TAIL))
+    out, prefix = mc.run_kernel(bwt, insmap, start, n,
+                                table_dtype(bwt.shape[0] - PAD_TAIL))
+    return out, mc.tables(prefix, bwt.shape[0], K)
 
 
 def check(say=print, device="cuda"):
@@ -101,18 +102,19 @@ def measure(say=print, device="cuda", iters: int = 10):
         tdt = table_dtype(alloc - PAD_TAIL)
         dest, insmap = mc.insertion_map(pos, sym, stream, valid, nb)
         start = mc.block_prefix(dest, nb)
-        _, rows = mc.run_kernel(bwt, insmap, start, nt)
+        _, prefix = mc.run_kernel(bwt, insmap, start, nt, tdt)
         fns = {
             "insertion_map": lambda: mc.insertion_map(pos, sym, stream,
                                                       valid, nb),
             "block_prefix": lambda: mc.block_prefix(dest, nb),
-            "kernel": lambda: mc.run_kernel(bwt, insmap, start, nt),
-            "tables": lambda: mc.tables(rows, alloc, K, tdt),
+            "kernel": lambda: mc.run_kernel(bwt, insmap, start, nt, tdt),
+            "tables": lambda: mc.tables(prefix, alloc, K),
             "merge": lambda: mc.merge(bwt, pos, sym, stream, valid, nt, K),
         }
         t = {"device": {s: _timing.graph_ms(f, iters) for s, f in fns.items()},
              "eager": {s: _timing.event_ms(f, iters) for s, f in fns.items()},
-             "bound_ms": _timing.bound_ms(_timing.merge_bytes(n, m, alloc))}
+             "bound_ms": _timing.bound_ms(_timing.merge_bytes(
+                 n, m, alloc, tile=mc.tile_blocks(nb)))}
         out[name] = t
         for how in ("device", "eager"):
             d = t[how]
@@ -124,7 +126,7 @@ def measure(say=print, device="cuda", iters: int = 10):
         say(f"F {name}: kernel bound {t['bound_ms']:.4f} ms, share "
             f"{_timing.share(t['bound_ms'], t['device']['kernel']):.3f} "
             f"on the device")
-        del bwt, pos, sym, stream, valid, dest, insmap, start, rows, fns
+        del bwt, pos, sym, stream, valid, dest, insmap, start, prefix, fns
         torch.cuda.empty_cache()
     return out
 

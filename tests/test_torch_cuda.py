@@ -339,7 +339,125 @@ def test_merge_steps_on_the_card_equal_merge(dev, K):
     nb = -(-bwt.shape[0] // merge_cuda.BS)
     dest, insmap = merge_cuda.insertion_map(pos, sym, stream, valid, nb)
     start = merge_cuda.block_prefix(dest, nb)
-    got, grows = merge_cuda.run_kernel(bwt, insmap, start, nt)
-    want, wrows = merge_cuda.merge_blocks(bwt, insmap, start, nt)
+    got, gpre = merge_cuda.run_kernel(bwt, insmap, start, nt, torch.int32)
+    want, wpre = merge_cuda.merge_blocks(bwt, insmap, start, nt, torch.int32)
     assert torch.equal(got[:live], want[:live])
-    assert torch.equal(grows, wrows)
+    assert torch.equal(gpre[: live // 128 + 1], wpre[: live // 128 + 1])
+
+
+def _kernel_inputs(dev, cap, n, pos, seed):
+    """A buffer of n random symbols and random int8 past them, and the
+    insertion map and block prefix of sorted insertions at ``pos``."""
+    rng = np.random.default_rng(seed)
+    buf = rng.integers(-128, 128, cap + PAD_TAIL).astype(np.int8)
+    buf[:n] = rng.integers(0, 6, n)
+    m = len(pos)
+    bwt, pos, sym, nt = [torch.from_numpy(np.asarray(x)).to(dev) for x in (
+        buf, pos, rng.integers(0, 6, m), n)]
+    nb = -(-bwt.shape[0] // merge_cuda.BS)
+    dest, insmap = merge_cuda.insertion_map(
+        pos, sym, torch.arange(m, device=dev),
+        torch.ones(m, dtype=torch.bool, device=dev), nb)
+    return bwt, insmap, merge_cuda.block_prefix(dest, nb), nt
+
+
+def _held_against_plain(args, live, dtype):
+    """run_kernel against merge_blocks on the live prefix and its rows."""
+    launches = merge_cuda.LAUNCHES
+    got, gpre = merge_cuda.run_kernel(*args, dtype)
+    torch.cuda.synchronize()
+    assert merge_cuda.LAUNCHES == launches + 1
+    want, wpre = merge_cuda.merge_blocks(*args, dtype)
+    rows = live // 128 + 1
+    assert gpre.dtype == dtype
+    assert torch.equal(got[:live], want[:live])
+    assert torch.equal(gpre[:rows], wpre[:rows])
+    return got, gpre
+
+
+def test_merge_kernel_look_back_across_waves(dev):
+    """cap 2^25 + 2^20: 8,449 CTAs against 1,056 resident, so the
+    look-back chain runs across several waves of CTAs; merge() against
+    apply_insertions + build_block_tables at K = 128."""
+    rng = np.random.default_rng(90)
+    cap, m = (1 << 25) + (1 << 20), 1 << 16
+    n = cap - m - 4321
+    args = _kernel_inputs(dev, cap, n, np.sort(rng.integers(0, n + 1, m)),
+                          91)
+    assert args[2].shape[0] - 1 >= 8 * 1056
+    _held_against_plain(args, n + m, torch.int32)
+    bwt, _, _, nt = args
+    pos = torch.from_numpy(np.sort(rng.integers(0, n + 1, m))).to(dev)
+    sym = torch.from_numpy(rng.integers(0, 6, m)).to(dev)
+    stream = torch.arange(m, device=dev)
+    valid = torch.ones(m, dtype=torch.bool, device=dev)
+    got, got_blk = merge_cuda.merge(bwt, pos, sym, stream, valid, nt, 128)
+    want = apply_insertions(bwt, nt, pos, sym, stream, valid)
+    want_blk = build_block_tables(want, 128, dtype=torch.int32)
+    rows = (n + m) // 128 + 1
+    assert torch.equal(got[: n + m], want[: n + m])
+    assert torch.equal(got_blk[:rows], want_blk[:rows])
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_merge_kernel_int64_prefix_at_a_small_cap(dev, dtype):
+    """run_kernel with int64 and int32 prefix rows, a ragged last CTA."""
+    rng = np.random.default_rng(92)
+    cap, m = 5 * 4096 + 1280, 700
+    n = cap - m - 33
+    args = _kernel_inputs(dev, cap, n, np.sort(rng.integers(0, n + 1, m)),
+                          93)
+    _, pre = _held_against_plain(args, n + m, dtype)
+    assert not pre[0].any()
+
+
+def test_merge_kernel_cta_mix(dev):
+    """CTAs with no insertion (every thread copies its window), CTAs that
+    are all insertions, insertions at symbol 0, and runs of 16 insertions
+    at 16-byte boundaries of the old run, so that old runs start at
+    offsets 0 and 1-15 of a 16-byte chunk: both gather paths, every
+    alignment of the staging."""
+    rng = np.random.default_rng(94)
+    cap, n = 1 << 22, (1 << 22) - 60_000
+    pos = np.concatenate([
+        np.zeros(5, np.int64),                        # at symbol 0
+        np.full(9000, 40 * 4096 + 77),                # all-insertion CTAs
+        np.repeat(rng.integers(200 * 16, 300 * 16, 40) // 16 * 16, 16),
+        np.sort(rng.integers(n // 2, n + 1, 3000)),   # sparse, any offset
+    ])
+    pos = np.sort(pos)
+    args = _kernel_inputs(dev, cap, n, pos, 95)
+    start = args[2].cpu().numpy()
+    o0 = np.arange(start.shape[0] - 1) * 4096 - start[:-1]
+    live = n + len(pos)
+    live_o0 = o0[: -(-live // 4096)]
+    assert (live_o0 % 16 == 0).any() and (live_o0 % 16 != 0).any()
+    ins = (args[1][: start.shape[0] * 4096 - 4096] != 0).view(-1, 4096)
+    per_cta = ins.sum(1).cpu().numpy()[: -(-live // 4096)]
+    assert (per_cta == 0).any() and (per_cta == 4096).any()
+    _held_against_plain(args, live, torch.int32)
+
+
+def test_merge_kernel_in_a_cuda_graph(dev):
+    """One CUDA graph of two launches (the status words and the ticket are
+    reset inside it), replayed twice: each replay equals the eager
+    result."""
+    rng = np.random.default_rng(96)
+    cap, m = 1 << 22, 1 << 13
+    n = cap - m - 999
+    args = _kernel_inputs(dev, cap, n, np.sort(rng.integers(0, n + 1, m)),
+                          97)
+    live, rows = n + m, (n + m) // 128 + 1
+    want, wpre = merge_cuda.run_kernel(*args, torch.int32)
+    outs = []
+    g = _timing._graph(lambda i: outs.append(merge_cuda.run_kernel(
+        *args, torch.int32)), 2)
+    for _ in range(2):
+        for o, pre in outs[1:]:  # outs[0]: the eager warm-up call's
+            o.zero_()
+            pre.fill_(-1)
+        g.replay()
+        torch.cuda.synchronize()
+        for got, gpre in outs[1:]:
+            assert torch.equal(got[:live], want[:live])
+            assert torch.equal(gpre[:rows], wpre[:rows])

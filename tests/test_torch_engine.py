@@ -8,10 +8,12 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from ropebwt2_tpu.engine import TpuBwt
 
-from ropebwt2_tpu_torch.engine import TorchBwt
+from ropebwt2_tpu_torch.engine import TorchBwt, bcr
+from ropebwt2_tpu_torch.index.rank import build_block_tables
 
 from conftest import random_reads
 
@@ -117,3 +119,43 @@ def test_plan_matches_jax(extra):
     assert torch_eng.state.cap == jax_eng.state.cap
     assert tuple(torch_eng.state.blk_prefix.shape) == \
         tuple(jax_eng.state.blk_prefix.shape)
+
+
+@pytest.mark.parametrize("so", [0, 1, 2])
+@pytest.mark.parametrize("defer_r", [0, 8])
+def test_no_consumer_reads_a_table_row_past_the_live_prefix(so, defer_r,
+                                                             monkeypatch):
+    """Kernel A leaves the rank table rows past the live end L = n +
+    #insertions unspecified.  With every merge's rows past L // K
+    overwritten by junk (-1 and 2^30 in turn), a build over four batches,
+    each growing the capacity, must still equal the JAX package's byte for
+    byte: no consumer (the rank, the pending set's virtual rank, a flush,
+    grow_state) reads such a row."""
+    real_merge, real_grow = bcr.merge, bcr.grow_state
+    poisoned, grown = [], []
+
+    def merge(bwt, pos, sym, stream, valid, n, K):
+        out, blk = real_merge(bwt, pos, sym, stream, valid, n, K)
+        first = (int(n) + int(valid.sum())) // K + 1
+        blk = blk.clone()
+        blk[first:] = -1
+        blk[first::2] = 1 << 30
+        poisoned.append(blk.shape[0] - first)
+        return out, blk
+
+    def grow_state(state, new_cap, K):
+        grown.append(new_cap)
+        return real_grow(state, new_cap, K)
+
+    monkeypatch.setattr(bcr, "merge", merge)
+    monkeypatch.setattr(bcr, "grow_state", grow_state)
+    rng = np.random.default_rng(40 + so + defer_r)
+    batches = [rng.integers(1, 5, (k, 41)).astype(np.int8)
+               for k in (30, 70, 150, 300)]
+    eng = _both(so, defer_r, batches)
+    # a merge a round (42 a batch) or a flush every 8 rounds
+    assert len(poisoned) == 4 * (42 if defer_r == 0 else -(-42 // 8))
+    assert len(grown) == 4 and all(p > 0 for p in poisoned)
+    live = eng.n // 128 + 1
+    assert torch.equal(eng.state.blk_prefix[:live], build_block_tables(
+        eng.state.bwt, 128, eng.state.blk_prefix.dtype)[:live])

@@ -17,9 +17,10 @@ import jax.numpy as jnp
 
 from ropebwt2_tpu.index import merge_pallas as mp
 from ropebwt2_tpu.index import packed as jpacked
+from ropebwt2_tpu.index import rank as jrank
 
 from ropebwt2_tpu_torch import _build
-from ropebwt2_tpu_torch.index import merge_cuda
+from ropebwt2_tpu_torch.index import merge_cuda, rank
 from ropebwt2_tpu_torch.index.flat import PAD_TAIL, table_dtype
 from ropebwt2_tpu_torch.probes import (
     _timing, kernel_features, kernel_scaling, kernel_stages, merge_phases,
@@ -97,6 +98,24 @@ def test_counts_match_one_hot(fn):
     assert np.array_equal(got.numpy(), want)
 
 
+def test_row_prefix_is_the_cumsum_of_each_ctas_counts():
+    """Stage (d)'s result: the counts of every 128 symbols summed over the
+    32 rows of each 4096 (the in-CTA part of kernel A's rank prefix),
+    against numpy, and against the JAX package's rank tables of each
+    4096-symbol block at K = 128."""
+    sym = np.random.default_rng(5).integers(0, 7, 8 * BS).astype(np.int8)
+    one_hot = (sym.reshape(-1, mp.LANE, 1) == np.arange(6)).sum(1)
+    want = np.cumsum(one_hot.reshape(8, 32, 6), axis=1).reshape(-1, 6)
+    got = kernel_stages.row_prefix_plain(torch.from_numpy(sym))
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), want)
+    for b in range(8):
+        tab = jrank.build_block_tables(jnp.asarray(sym[b * BS:(b + 1) * BS]),
+                                       mp.LANE, dtype=jnp.int32)
+        assert np.array_equal(got.numpy()[32 * b: 32 * b + 32],
+                              np.asarray(tab)[1:])
+
+
 @pytest.mark.parametrize("stage", kernel_stages.STAGES)
 def test_stage_wrappers_run_their_plain_version_on_the_cpu(stage):
     d = kernel_stages.make_inputs(3, 5, "cpu")
@@ -154,16 +173,24 @@ def test_split_merge_steps_compose_to_merge(K, n_frac, dense):
 
 
 def test_merge_blocks_zero_rows_past_the_live_prefix():
+    """run_kernel's plain version returns the 128-symbol rank prefix of
+    all nb * 32 rows, a zero row first, in either table type: exact, and
+    128 symbols a row, up to the live end; the rows past it are the
+    prefix of whatever lies there (the kernel leaves them unspecified)."""
     cap, m, n = 1 << 16, 64, 9000
     bwt, pos, sym, stream, valid, nt = merge_phases.lanes(cap, m, n, 8, "cpu")
     nb = -(-bwt.shape[0] // BS)
     dest, insmap = merge_cuda.insertion_map(pos, sym, stream, valid, nb)
-    out, rows = merge_cuda.run_kernel(bwt, insmap,
-                                      merge_cuda.block_prefix(dest, nb), nt)
-    assert out.shape == bwt.shape and rows.shape == (nb * 32, 6)
-    live_ctas = -(-(n + m) // BS)
-    assert not rows[live_ctas * 32:].any()
-    assert int(rows[: (n + m) // 128].sum()) == (n + m) // 128 * 128
+    live = n + m
+    for dtype in (torch.int32, torch.int64):
+        out, prefix = merge_cuda.run_kernel(
+            bwt, insmap, merge_cuda.block_prefix(dest, nb), nt, dtype)
+        assert out.shape == bwt.shape and prefix.shape == (nb * 32 + 1, 6)
+        assert prefix.dtype == dtype and not prefix[0].any()
+        rows = prefix[: live // 128 + 1]
+        assert torch.equal(rows.sum(1), torch.arange(rows.shape[0]) * 128)
+        want = rank.build_block_tables(out, 128, dtype=dtype)
+        assert torch.equal(rows, want[: live // 128 + 1])
 
 
 def test_nibble_plain_matches_the_jax_layout():
@@ -211,12 +238,18 @@ def test_byte_models_at_the_chip_smoke_shapes():
     n = cap - m - 4097
     alloc = cap + PAD_TAIL
     live = n + m
-    na = -(-live // BS)  # count rows of the live CTAs only
-    want_a = n + live + live + na * 32 * 24 + 8 * (na + 2)
+    na = -(-live // BS)  # prefix rows and status words of the live CTAs
+    want_a = n + live + live + (na * 32 + 1) * 24 + na * 48 + 8 * (na + 2)
     assert _timing.merge_bytes(n, m, alloc) == want_a
+    assert _timing.merge_bytes(n, m, alloc, width=8) == \
+        want_a + (na * 32 + 1) * 24
+    # status words a live tile: 4,095 live blocks in 1,024 tiles of 4
+    assert _timing.merge_bytes(n, m, alloc, tile=4) == \
+        want_a - na * 48 + -(-na // 4) * 48
+    assert merge_cuda.tile_blocks(-(-alloc // BS)) == 4
     # the script's nsb 1 shape: 32 live CTAs of 4097, their rows only
     assert _timing.merge_bytes(131_072, 0, alloc) == \
-        3 * 131_072 + 32 * 32 * 24 + 8 * 34
+        3 * 131_072 + (32 * 32 + 1) * 24 + 32 * 48 + 8 * 34
     # flush shape: ~0.47 GB, ~0.14 ms
     f = 147_062_784
     a = _timing.merge_bytes(f - (1 << 20) - 12345, 1 << 20, f + PAD_TAIL)
@@ -242,7 +275,7 @@ def test_byte_models_at_the_chip_smoke_shapes():
     # the four stages add up to kernel A with every CTA live
     g = 1056
     assert sum(_timing.stage_bytes(s, g) for s in kernel_stages.STAGES) \
-        == g * (3 * BS + 32 * 24)
+        == g * (3 * BS + 32 * 24 + 48)
     assert _timing.share(_timing.bound_ms(a), 2 * _timing.bound_ms(a)) \
         == pytest.approx(0.5)
 
