@@ -10,7 +10,10 @@ Phases, each reported on its own line:
    csrc/probes (one nvcc per source, all started together), and time it;
 2. kernel A (merge) against its plain version on the card, at the batch
    shape (cap 2^24, 2^17 insertions), at the flush shape (cap 147,062,784,
-   2^20 insertions) and on a dense case: the wrapper's buffer and K-block
+   2^20 insertions), on a dense case, and at phase 9's largest calls (the
+   last round of its one-batch run, cap 213,909,504 with 2^21 insertions;
+   of its -m 64m run the last round and the last flush, cap 2^28 with
+   638,194 and 1,095,420 active lanes): the wrapper's buffer and K-block
    tables, and the kernel alone (run_kernel: buffer and 128-symbol rank
    prefix) with int32 and int64 rows; the kernel alone beside the whole
    wrapper (eager and on the device) and the earlier kernel's and
@@ -32,7 +35,8 @@ Phases, each reported on its own line:
    CTAs untouched), pcap 2^20 with 2^17 rows per round, the pending set
    0% (CTAs all new), 30% and 90% full (p_after = pcap), with no active
    lane (p_after = 0), and at the capacity path's shape (pcap 2^24, 2^20
-   rows, half full); then pending_add chained over 4 rounds, a reset and 4
+   rows, half full), and at phase 9's fullest call (pcap 2^21, 2^18 rows,
+   1,277,990 pending); then pending_add chained over 4 rounds, a reset and 4
    more, against the plain version round by round;
 4. small builds (4096 reads x 101 in 2 batches, so 0/1/2, defer_r 0/8):
    the card's BWT equals the CPU's byte for byte, and an LF walk from
@@ -62,15 +66,37 @@ Phases, each reported on its own line:
    shapes; a feature that does not compile is printed as FAIL and is no
    failure, one that compiles and disagrees is.
 
+8. the FM-index queries of bench.py:225-321 through the port's
+   engine/query.py over the flat and the packed index that phase 5's
+   sustained regime leaves (10 batches of 2^17 x 101): rank (2^18 sorted
+   positions, 32 chained steps), extend (2^18 bi-intervals, 32 chained
+   backward steps) and backward_search (2^16 patterns of 31 symbols), in
+   Mq/s, M ext/s and M sym-steps/s; rank at 4096 sorted positions against
+   numpy counts over the host copy of the BWT, backward_search of 4096
+   substrings of the reads (each found, each equal to chained extends), and
+   the two tiers' answers equal;
+9. the CLI end to end: 2^20 coverage reads x 101 (seed 0, 47x, 1% errors)
+   as gzip FASTQ through ``python -m ropebwt2_tpu_torch.cli -s -d`` in a
+   child process (both strands, the default -m: one batch of ~214 M
+   symbols), which must build on the card with the native reader and
+   writer; then ``-s -m 64m`` with text output in this process (several
+   batches); the FMD decoded by FmdReader equals the text BWT byte for
+   byte, an LF walk over it spells back 1000 strings of the input, and -b
+   on 2^14 reads then -i with 2^14 more equals one build of both.  The
+   shapes the two runs give kernels A and B must be phases 2 and 3's
+   cases: the first run's as TorchBwt plans it, the second's as recorded
+   from the engine's calls (engine_calls).
+
 Launches are counted per path: each path (the batch and the sustained
 regime of phase 5, flat and packed, the capacity build of phase 6, the
-probe suite of phase 7) runs with every count set to 0 just before it
-and is read just after.  A count is of eager launches: the probes time
-short kernels in CUDA graphs, whose capture launches nothing and whose
-replays do not call the wrappers.  Every kernel's entry in the kernels line has
-its time, its plain version's, its bound (the bytes it must move over
-the card's 3.35 TB/s, probes/_timing.py), the library call's where one
-PyTorch call computes the same function, and its launches by path.
+probe suite of phase 7, the CLI's run in this process of phase 9) runs
+with every count set to 0 just before it and is read just after. A count
+is of eager launches: the probes time short kernels in CUDA graphs,
+whose capture launches nothing and whose replays do not call the
+wrappers. Every kernel's entry in the kernels line has its time, its
+plain version's, its bound (the bytes it must move over the card's 3.35
+TB/s, probes/_timing.py), the library call's where one PyTorch call
+computes the same function, and its launches by path.
 
 Kernels A, B and C are timed alone as a CUDA graph of their bare launch
 (A's with the reset of its look-back status words; the profiler's figure
@@ -85,6 +111,7 @@ power limit, and then
 {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -99,18 +126,42 @@ DEV = "cuda"
 M_BENCH, L_BENCH = 1 << 17, 101  # bench.py's batch: 2^17 reads x 101
 PREFILL, SUSTAIN = 8, 2  # bench.py's sustained regime
 CAP_FLUSH = 147_062_784  # the capacity that bench.py's sustained plan gives
-MERGE_CASES = (  # name, cap, insertions, live n, dense
-    ("batch", 1 << 24, 1 << 17, (1 << 24) - (1 << 17) - 4097, False),
-    ("flush", CAP_FLUSH, 1 << 20, CAP_FLUSH - (1 << 20) - 12345, False),
-    ("dense", 1 << 24, 1 << 17, 5_000_000, True),
+# phase 9's reads: 2^20 x 101, both strands (213,909,504 symbols); its
+# `-s -m 64m` run inserts batches of 638,194 strings (2^20 lanes) and a
+# 4th of 182,570 (2^18 lanes, R = 8, pcap 2^21)
+CLI_TOTAL, CLI_BATCH, CLI_LAST = 213_909_504, 638_194, 182_570
+MERGE_CASES = (  # name, cap, insertion lanes, live n, dense, active lanes
+    ("batch", 1 << 24, 1 << 17, (1 << 24) - (1 << 17) - 4097, False, None),
+    ("flush", CAP_FLUSH, 1 << 20, CAP_FLUSH - (1 << 20) - 12345, False,
+     None),
+    ("dense", 1 << 24, 1 << 17, 5_000_000, True, None),
+    # the CLI's largest calls of kernel A (phase 9 holds them to what its
+    # run gives): the last round of `-s -d`'s one batch of 2^21 strings,
+    # and of `-s -m 64m` the last round of its 3rd batch and the last
+    # flush of its 4th
+    ("cli", CLI_TOTAL, 1 << 21, CLI_TOTAL - (1 << 21), False, None),
+    ("cli 64m round", 1 << 28, 1 << 20, 2 * 102 * CLI_BATCH + 101 * CLI_BATCH,
+     False, CLI_BATCH),
+    ("cli 64m flush", 1 << 28, 1 << 21, 3 * 102 * CLI_BATCH + 96 * CLI_LAST,
+     False, 6 * CLI_LAST),
 )
 PEND_SHAPE = (1 << 20, 1 << 17, CAP_FLUSH)  # pcap, rows per round, max vp
+# kernel B in the CLI's 4th batch at its fullest: pcap 2^21, 2^18 lanes,
+# 7 of R = 8 rounds pending, one round's strings active
+PEND_CLI = (1 << 21, 1 << 18, CLI_TOTAL, 7 * CLI_LAST / (1 << 21), CLI_LAST)
 SMALL = (4096, (2048, 2048))  # reads, batch sizes
 # the capacity phase: scripts/scale_run.py's configuration (SCALE4G's
 # batches of 2^20 reads), cut from 39,321,600 reads to 21 batches
 SCALE_MBATCH, SCALE_BATCHES = 1 << 20, 21
 CAP_SCALE = SCALE_BATCHES * SCALE_MBATCH * (L_BENCH + 1)  # 2,246,049,792
 SCALE_WALKS = 4096  # sentinel rows walked back to their reads
+# phase 8: bench.py's query workloads (positions x chained steps; patterns
+# x length), and the sampled checks
+QUERY_RANK, QUERY_SEARCH, QUERY_CHECKS = (1 << 18, 32), (1 << 16, 31), 4096
+# phase 9: reads of the CLI's input, LF walks over its FMD, and the reads
+# of each file of the -b / -i check
+CLI_READS, CLI_WALKS, CLI_RESTORE = 1 << 20, 1000, 1 << 14
+CLI_M = "64m"  # -m of the second run, which gives several batches
 CAP_PACKED = 147_849_216  # the packed sustained regime's capacity (phase 5)
 # name, cap, insertion lanes, live n, dense, reference; the sustained case
 # is a flush of the packed sustained regime (R = 8), the flush case
@@ -282,9 +333,10 @@ def insertions(gen, m, n, dense, a=None):
     return pos, sym, stream, valid, a
 
 
-def merge_case(gen, cap, m, n, dense, K=128):
+def merge_case(gen, cap, m, n, dense, a=None, K=128):
     """Random live prefix of n symbols (garbage past it), m sorted
-    insertions; holds the wrapper's result on the live prefix and its
+    insertion lanes of which the first ``a`` (all if None) are active;
+    holds the wrapper's result on the live prefix and its
     table rows against the plain version's, and the kernel alone
     (run_kernel) against its plain version merge_blocks with int32 and
     with int64 prefix rows.  Returns max_abs_err, the wrapper's times
@@ -305,7 +357,7 @@ def merge_case(gen, cap, m, n, dense, K=128):
                         dtype=torch.int8)
     bwt[:n] = torch.randint(0, 6, (n,), generator=gen, device=dev,
                             dtype=torch.int8)
-    pos, sym, stream, valid, a = insertions(gen, m, n, dense)
+    pos, sym, stream, valid, a = insertions(gen, m, n, dense, a)
     nt = torch.tensor(n, dtype=torch.int64, device=dev)
 
     got, got_blk = merge_cuda.merge(bwt, pos, sym, stream, valid, nt, K)
@@ -351,9 +403,10 @@ def merge_case(gen, cap, m, n, dense, K=128):
 def phase_merge(torch):
     gen = torch.Generator(device=DEV).manual_seed(2)
     out = {}
-    for name, cap, m, n, dense in MERGE_CASES:
-        r = merge_case(gen, cap, m, n, dense)
-        say(f"[2] merge {name}: cap {cap} M {m} n {n} max_abs_err "
+    for name, cap, m, n, dense, a in MERGE_CASES:
+        r = merge_case(gen, cap, m, n, dense, a)
+        say(f"[2] merge {name}: cap {cap} M {m} active "
+            f"{m if a is None else a} n {n} max_abs_err "
             f"{r['err']} (tolerance 0; the kernel alone against "
             f"merge_blocks with int32 / int64 rows: "
             f"{r['kernel_err']['int32']} / {r['kernel_err']['int64']}) "
@@ -541,6 +594,7 @@ def phase_pending(torch):
     # pcap, lanes, max vp, share full, active lanes (None: all that fit)
     cases = [(*PEND_SHAPE, frac, None) for frac in (0.0, 0.3, 0.9)]
     cases.append((*PEND_CAPACITY, None))
+    cases.append(PEND_CLI)
     cases.append((*PEND_SHAPE, 0.0, 0))  # no active lane: p_after = 0
     out = {}
     for pcap, m, nmax, frac, a in cases:
@@ -779,6 +833,7 @@ def phase_main(torch, ReadGen):
 
     # the sustained regime again on the packed tier: the same BWT
     flat_md5 = text_md5(eng.bwt_array())
+    kept = {"flat": to_host(eng)}  # phase 8 queries the two indexes
     del eng
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -802,6 +857,8 @@ def phase_main(torch, ReadGen):
     p_peak = torch.cuda.max_memory_allocated()
     packed_md5 = text_md5(eng.bwt_array())
     p_cap = eng.state.cap
+    kept["packed"] = to_host(eng)
+    kept["reads"] = sustained_batches[0][:QUERY_CHECKS]
     del eng
     torch.cuda.empty_cache()
     say(f"[5] sustained regime, packed tier (pack4=1): cap {p_cap} R "
@@ -820,7 +877,18 @@ def phase_main(torch, ReadGen):
     if batch_launches["merge"] == 0:
         raise AssertionError(f"a kernel never launched: {batch_launches}")
     return {"batch": (batch_launches, 1), "sustained": (launches, SUSTAIN),
-            "sustained_packed": (p_launches, SUSTAIN)}
+            "sustained_packed": (p_launches, SUSTAIN)}, kept
+
+
+def to_host(eng):
+    """(state with every tensor on the host, n) of an engine: phase 8 moves
+    it back, so that the indexes take no device memory meanwhile."""
+    import dataclasses
+
+    st = eng.state
+    return dataclasses.replace(st, **{
+        f.name: getattr(st, f.name).cpu() for f in dataclasses.fields(st)
+    }), eng.n
 
 
 # ---------------------------------------------------------------- phase 6
@@ -1041,6 +1109,401 @@ def phase_probes(torch):
     return res, launches
 
 
+# ---------------------------------------------------------------- phase 8
+
+def rate(fn, work, reps=3):
+    """(best wall s, work / s) of fn() over ``reps`` runs after a warm-up,
+    each ending in a device synchronisation."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    best = None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        best = dt if best is None else min(best, dt)
+    return best, work / best
+
+
+def numpy_rank(bwt, pos):
+    """occ[q, s] = # of s in bwt[:pos[q]] for sorted pos, by numpy counts
+    over the segments between consecutive positions."""
+    occ = np.zeros((pos.size, 6), np.int64)
+    run = np.zeros(6, np.int64)
+    prev = 0
+    for i, p in enumerate(pos):
+        run += np.bincount(bwt[prev:p], minlength=6)[:6]
+        occ[i] = run
+        prev = p
+    return occ
+
+
+def extend_chain(torch, query, st, pats):
+    """Sizes of the patterns' SA intervals by chained backward extends from
+    the whole-index bi-interval, one symbol at a time from the last."""
+    q, ln = pats.shape
+    n = int(st.n)
+    ik = torch.tensor([[0, 0, n]], device=pats.device).expand(q, 3)
+    rows = torch.arange(q, device=pats.device)
+    for col in range(ln - 1, -1, -1):
+        ik = query.extend(st, ik, is_back=True)[rows, pats[:, col]]
+    return ik[:, 2]
+
+
+def phase_queries(torch, kept, smi):
+    """The query workloads of bench.py:225-321 through the port's
+    engine/query.py over the flat and the packed index of phase 5's
+    sustained regime; rank held against numpy counts over the host copy of
+    the BWT, backward search against chained extends, the tiers against
+    each other."""
+    from ropebwt2_tpu_torch.engine import query
+
+    Q, iters = QUERY_RANK
+    Qb, plen = QUERY_SEARCH
+    reads = kept["reads"]
+    out, answers = {}, {}
+    for tier in ("flat", "packed"):
+        host, n = kept[tier]
+        st = type(host)(**{k: v.to(DEV) for k, v in vars(host).items()})
+        g = torch.Generator(device=DEV).manual_seed(8)
+        pos0 = torch.sort(torch.randint(0, n, (Q,), device=DEV,
+                                        generator=g)).values
+
+        def ranks():
+            p = pos0
+            for _ in range(iters):
+                occ = query.rank1a(st, p)
+                p = (p + (occ[:, 0] & 1)).clamp(0, n - 1)
+            return p
+
+        ik0 = torch.stack([
+            torch.sort(torch.randint(0, n - 200, (Q,), device=DEV,
+                                     generator=g)).values,
+            torch.zeros(Q, dtype=torch.int64, device=DEV),
+            torch.full((Q,), 100, dtype=torch.int64, device=DEV)], dim=1)
+        rows = torch.arange(Q, device=DEV)
+
+        def extends():
+            ik = ik0
+            for i in range(iters):
+                ok = query.extend(st, ik, is_back=True)[rows, i % 4 + 1]
+                ik = torch.cat([ok[:, :2], ok[:, 2:].clamp(min=1)], dim=1)
+            return ik
+
+        pats = torch.randint(1, 5, (Qb, plen), device=DEV, generator=g)
+        lens = torch.full((Qb,), plen, device=DEV)
+        r_s, r_rate = rate(ranks, Q * iters)
+        e_s, e_rate = rate(extends, Q * iters)
+        b_s, b_rate = rate(lambda: query.backward_search(st, pats, lens),
+                           Qb * plen)
+        say(f"[8] {tier} index, n {n}: rank {r_rate / 1e6:.3f} Mq/s "
+            f"({Q} positions x {iters} chained steps, best {r_s:.4f} s); "
+            f"extend {e_rate / 1e6:.3f} M ext/s ({Q} bi-intervals x {iters} "
+            f"steps, best {e_s:.4f} s); backward_search {b_rate / 1e6:.3f} M "
+            f"sym-steps/s ({Qb} patterns x {plen}, best {b_s:.4f} s); {smi}")
+        out[tier] = {"rank_mqs": r_rate / 1e6, "extend_mexts": e_rate / 1e6,
+                     "bsearch_msyms": b_rate / 1e6}
+
+        # the checks
+        cpos = np.sort(np.random.default_rng(8).integers(0, n + 1,
+                                                         QUERY_CHECKS))
+        occ = query.rank1a(st, cpos).cpu().numpy()
+        bwt = (host.bwt[:n].numpy() if tier == "flat" else
+               unpack_rows(host.pbwt, n))
+        rank_ok = np.array_equal(occ, numpy_rank(bwt, cpos))
+        starts = np.random.default_rng(9).integers(0, reads.shape[1] - plen,
+                                                   reads.shape[0])
+        sub = reads[np.arange(reads.shape[0])[:, None],
+                    starts[:, None] + np.arange(plen)[None, :]]
+        sub_t = torch.from_numpy(sub.astype(np.int64)).to(DEV)
+        lo, hi = query.backward_search(st, sub_t, torch.full(
+            (sub.shape[0],), plen, device=DEV))
+        size = hi - lo
+        chained = extend_chain(torch, query, st, sub_t)
+        found = bool((size >= 1).all())
+        chain_ok = torch.equal(size, chained)
+        say(f"[8] {tier} checks: rank at {QUERY_CHECKS} sorted positions == "
+            f"numpy counts over the host copy {rank_ok}; backward_search "
+            f"of {sub.shape[0]} substrings ({plen} symbols) of the reads: "
+            f"every one found {found} (sizes {int(size.min())}-"
+            f"{int(size.max())}), == chained extend {chain_ok}")
+        if not (rank_ok and found and chain_ok):
+            raise AssertionError(f"phase 8 failed its checks ({tier})")
+        answers[tier] = [ranks().cpu(), extends().cpu(), lo.cpu(), hi.cpu(),
+                         torch.from_numpy(occ)]
+        del st
+        torch.cuda.empty_cache()
+    same = all(torch.equal(a, b) for a, b in zip(answers["flat"],
+                                                 answers["packed"]))
+    say(f"[8] flat and packed indexes give equal answers (rank chains, "
+        f"extend chains, backward_search intervals, sampled ranks): {same}")
+    if not same:
+        raise AssertionError("the flat and packed queries disagree")
+    return out
+
+
+def unpack_rows(pbwt, n):
+    """int8[n] symbols of a host packed buffer."""
+    from ropebwt2_tpu_torch.index.packed import unpack_bwt_np
+
+    return unpack_bwt_np(pbwt[: -(-n // 256) * 128].numpy())[:n]
+
+
+# ---------------------------------------------------------------- phase 9
+
+def case_shape(name):
+    """(cap, lanes, live n, active lanes) of a MERGE_CASES row; active is
+    None where every lane is."""
+    row = next(r for r in MERGE_CASES if r[0] == name)
+    return row[1], row[2], row[3], row[5]
+
+
+def write_fastq_gz(path, reads, first=0):
+    """Reads (m, L) nt6 codes as gzip FASTQ, names @r<index>, quality I."""
+    import gzip
+
+    m, ln = reads.shape
+    lut = np.frombuffer(b"$ACGTN", np.uint8)
+    rec = np.empty((m, 10 + 2 * ln + 4), np.uint8)
+    rec[:, 0:2] = np.frombuffer(b"@r", np.uint8)
+    idx = np.arange(first, first + m)
+    for k in range(7):
+        rec[:, 8 - k] = 48 + (idx // 10 ** k) % 10
+    rec[:, 9] = ord("\n")
+    rec[:, 10:10 + ln] = lut[reads]
+    rec[:, 10 + ln:13 + ln] = np.frombuffer(b"\n+\n", np.uint8)
+    rec[:, 13 + ln:13 + 2 * ln] = ord("I")
+    rec[:, 13 + 2 * ln] = ord("\n")
+    with gzip.open(path, "wb", compresslevel=1) as f:
+        f.write(rec.tobytes())
+
+
+def revcomp_hashes(mat):
+    """read_hashes of the reads and of their reverse complements."""
+    rc = np.where((mat >= 1) & (mat <= 4), 5 - mat, mat)[:, ::-1]
+    return np.concatenate([read_hashes(mat), read_hashes(rc)])
+
+
+@contextlib.contextmanager
+def engine_calls():
+    """Record the engine's calls of kernel A's wrapper (flush or round,
+    cap, lanes, live n, active lanes) and of pending_add (kernel B: pcap,
+    lanes, rows pending before, active lanes), and its batches, by
+    wrapping the engine's names for them.  The counts stay on the device
+    until the caller reads them: the run is not made to wait."""
+    from ropebwt2_tpu_torch.engine import bcr
+    from ropebwt2_tpu_torch.index.flat import PAD_TAIL
+
+    saved = bcr.merge, bcr.pending_add, bcr.bcr_batch
+    log = {"batches": [], "merge": [], "pending": []}
+
+    def batch(state, reads, buf, n_rounds, **kw):
+        log["batches"].append(kw.get("defer_r", 0) > 0)
+        return saved[2](state, reads, buf, n_rounds, **kw)
+
+    def merge(bwt, pos, sym, stream, valid, n, K):
+        log["merge"].append((log["batches"][-1], bwt.shape[0] - PAD_TAIL,
+                             pos.shape[0], n, valid.sum()))
+        return saved[0](bwt, pos, sym, stream, valid, n, K)
+
+    def pending_add(pend, gX, sym, stream, active):
+        log["pending"].append((pend.cap, gX.shape[0], pend.p, active.sum()))
+        return saved[1](pend, gX, sym, stream, active)
+
+    bcr.merge, bcr.pending_add, bcr.bcr_batch = merge, pending_add, batch
+    try:
+        yield log
+    finally:
+        bcr.merge, bcr.pending_add, bcr.bcr_batch = saved
+
+
+def largest_calls(log):
+    """The recorded calls of the largest live size: kernel A's round and
+    flush as (cap, lanes, n, active), kernel B's as (pcap, lanes, rows
+    pending, active); None where there was no such call."""
+    def ints(rows):
+        return [tuple(int(x) for x in r) for r in rows]
+
+    merges = ints(r[1:] for r in log["merge"])
+    flushes = [c for c, r in zip(merges, log["merge"]) if r[0]]
+    rounds = [c for c, r in zip(merges, log["merge"]) if not r[0]]
+    pend = ints(log["pending"])
+
+    def top(calls):
+        return max(calls, key=lambda c: c[2]) if calls else None
+
+    return {"round": top(rounds), "flush": top(flushes), "pending": top(pend)}
+
+
+def phase_cli(torch, ReadGen, smi):
+    """The CLI end to end: a gzip FASTQ of 2^20 coverage reads x 101 through
+    ``python -m ropebwt2_tpu_torch.cli -s -d`` in a child process, then
+    in this process with -m 64m and text output (kernel launches counted);
+    the FMD against the text BWT, an LF walk over it, and -b then -i plus
+    a second file against a one-shot build of both."""
+    from ropebwt2_tpu_torch import cli
+    from ropebwt2_tpu_torch.engine import query
+    from ropebwt2_tpu_torch.io.fmd import FmdReader
+    from ropebwt2_tpu_torch.native import lib as nlib
+
+    if not nlib.native_available():
+        raise AssertionError(f"the native host runtime did not build: "
+                             f"{nlib.BUILD_ERROR}")
+    out = os.path.join(HERE, "smoke_out")
+    os.makedirs(out, exist_ok=True)
+    m, L = CLI_READS, L_BENCH
+    t0 = time.perf_counter()
+    gen = ReadGen(seed=0, nreads=m, L=L, mode="coverage", cov=47.0,
+                  err=0.01)
+    reads = gen.batch(m)
+    fq = os.path.join(out, "reads.fq.gz")
+    write_fastq_gz(fq, reads)
+    total = 2 * m * (L + 1)  # both strands
+    say(f"[9] input: {m} reads x {L} (seed 0, coverage 47x, 1% errors) as "
+        f"gzip FASTQ, {os.path.getsize(fq)} B, written in "
+        f"{time.perf_counter() - t0:.3f} s; {2 * m} strings and {total} "
+        f"symbols with both strands")
+
+    # run 1's one batch, as TorchBwt plans it: MERGE_CASES' "cli" row
+    from ropebwt2_tpu_torch.engine.bcr import TorchBwt
+
+    plan = TorchBwt(device=DEV)
+    plan._plan(total)
+    run1 = (plan.state.cap, 2 * m, total - 2 * m, None)
+    run1_ok = run1 == case_shape("cli") and \
+        plan._choose_defer(2 * m) == (0, 0)
+    del plan
+    torch.cuda.empty_cache()
+    say(f"[9] run 1's plan: one batch, cap {run1[0]}, R = 0, {2 * m} lanes "
+        f"a round, the last round at n {run1[2]}; == phase 2's cli case "
+        f"{run1_ok}")
+
+    # a fresh process's imports, the part of run 1's wall before main
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-c", "import ropebwt2_tpu_torch.cli"],
+                   cwd=HERE, stdin=subprocess.DEVNULL, check=True,
+                   timeout=300)
+    imports = time.perf_counter() - t0
+    say(f"[9] python -c 'import ropebwt2_tpu_torch.cli' (interpreter, "
+        f"torch, numpy, the package): {imports:.3f} s")
+
+    fmd = os.path.join(out, "cli.fmd")
+    cmd = [sys.executable, "-m", "ropebwt2_tpu_torch.cli", "-s", "-d", "-o",
+           fmd, fq]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=HERE, stdin=subprocess.DEVNULL,
+                       capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    for line in r.stderr.splitlines():
+        say(f"[9]   child: {line}")
+    if r.returncode != 0:
+        raise AssertionError(f"the CLI failed ({r.returncode})")
+    dev_line = [x for x in r.stderr.splitlines() if "[M::main] device" in x]
+    batches = [x for x in r.stderr.splitlines() if "] inserted " in x]
+    run1_ok &= len(batches) == 1 and f"inserted {total} symbols" in \
+        batches[0]
+    on_card = bool(dev_line) and "cuda" in dev_line[0]
+    native = "reader: native" in r.stderr and "writer: native fmd" in \
+        r.stderr
+    say(f"[9] run 1, {' '.join(cmd[1:])}: wall {wall:.3f} s in a fresh "
+        f"process, {total / wall / 1e6:.3f} Msym/s including start-up, "
+        f"parse and write; built on the card {on_card} "
+        f"({dev_line[0] if dev_line else 'no device line'}); native reader "
+        f"and writer {native}; {smi}")
+
+    txt = os.path.join(out, "cli.txt")
+    argv = ["-s", "-m", CLI_M, "-o", txt, fq]
+    torch.cuda.synchronize()
+    with engine_calls() as calls:
+        reset_launches()  # the CLI path: run 2, in this process
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+        launches = read_launches()
+    torch.cuda.empty_cache()
+    if rc != 0:
+        raise AssertionError(f"the CLI failed ({rc})")
+    nbatch = len(calls["batches"])
+    say(f"[9] run 2, cli.main({argv}): wall {wall2:.3f} s, "
+        f"{total / wall2 / 1e6:.3f} Msym/s including parse and write; "
+        f"{nbatch} batches; launches {launched(launches)}; {smi}")
+    # the shapes this run gave kernels A and B, against phases 2 and 3's
+    big = largest_calls(calls)
+    del calls
+    want = {"round": case_shape("cli 64m round"),
+            "flush": case_shape("cli 64m flush"),
+            "pending": (PEND_CLI[0], PEND_CLI[1],
+                        int(PEND_CLI[0] * PEND_CLI[3]), PEND_CLI[4])}
+    shapes_ok = big == want
+    say(f"[9] run 2's largest calls (cap or pcap, lanes, live n or rows "
+        f"pending, active): A round {big['round']}, A flush "
+        f"{big['flush']}, B {big['pending']}; == the cases of phases 2 and "
+        f"3 {shapes_ok}")
+
+    # the FMD decodes to the text BWT, byte for byte
+    lut = np.frombuffer(b"$ACGTN", np.uint8)
+    text = np.fromfile(txt, np.uint8)
+    rd = FmdReader(fmd)
+    sym, ln = rd.runs_arrays()
+    fmd_bwt = np.repeat(sym, ln)
+    fmd_ok = bool(text.size == total + 1 and text[-1] == ord("\n")
+                  and np.array_equal(lut[fmd_bwt], text[:-1]))
+    say(f"[9] FMD ({os.path.getsize(fmd)} B, {sym.size} runs) decoded by "
+        f"FmdReader == the text BWT of run 2 ({text.size} B): {fmd_ok}")
+    del text
+
+    # an LF walk over the FMD spells back strings of the input
+    st = rd.to_flat(K=128, device=DEV)
+    cnt = st.pcounts.sum(0)
+    C = torch.cumsum(cnt, 0) - cnt
+    rows = torch.arange(CLI_WALKS, device=DEV)
+    live = torch.ones_like(rows, dtype=torch.bool)
+    spelled = []
+    for _ in range(L + 1):
+        r0 = query.rank1a(st, rows)
+        s = (query.rank1a(st, rows + 1) - r0).argmax(dim=1)
+        live &= s != 0
+        spelled.append(torch.where(live, s, 0))
+        rows = torch.where(live, C[s] + r0.gather(1, s[:, None])[:, 0], rows)
+    spelled = torch.stack(spelled, dim=1).cpu().numpy()
+    del st
+    torch.cuda.empty_cache()
+    shaped = bool((spelled[:, :L] != 0).all() and (spelled[:, L] == 0).all())
+    table = np.sort(revcomp_hashes(reads))
+    h = read_hashes(spelled[:, :L][:, ::-1].astype(np.uint8))
+    found = int((table[np.searchsorted(table, h).clip(max=table.size - 1)]
+                 == h).sum())
+    say(f"[9] LF walk over the FMD on the card from {CLI_WALKS} sentinel "
+        f"rows: {L} symbols then the sentinel {shaped}; {found} of "
+        f"{CLI_WALKS} spell a read or its reverse complement")
+
+    # -b on a first file, -i with a second == one build of both
+    small = [gen.batch(CLI_RESTORE) for _ in range(2)]
+    paths = [os.path.join(out, f"small{i}.fq.gz") for i in range(2)]
+    for i, (p, bt) in enumerate(zip(paths, small)):
+        write_fastq_gz(p, bt, first=i * CLI_RESTORE)
+    both = os.path.join(out, "small_both.fq.gz")
+    write_fastq_gz(both, np.concatenate(small))
+    fmr = os.path.join(out, "small0.fmr")
+    res = [cli.main(["-s", "-b", "-o", fmr, paths[0]]),
+           cli.main(["-d", "-i", fmr, "-o", fmr + ".fmd", paths[1]]),
+           cli.main(["-s", "-d", "-o", both + ".fmd", both])]
+    restore_ok = res == [0, 0, 0] and \
+        open(fmr + ".fmd", "rb").read() == open(both + ".fmd", "rb").read()
+    say(f"[9] -b on {CLI_RESTORE} reads, then -i with {CLI_RESTORE} more == "
+        f"one -s build of both (FMD bytes): {restore_ok}")
+    if not (on_card and native and fmd_ok and shaped and found == CLI_WALKS
+            and restore_ok and run1_ok and shapes_ok):
+        raise AssertionError("phase 9 failed its checks")
+    if launches["merge"] == 0 or launches["pending_merge"] == 0:
+        raise AssertionError(f"a kernel never launched: {launches}")
+    return {"cli": (launches, nbatch)}, {"run1_s": wall, "run2_s": wall2}
+
+
 def kernel_table(merge_res, packed_res, pend_res, paths, probes):
     """The kernels line: A, B, C with their launches per batch on every
     path, their time, plain time and bound at the shape of each path, and
@@ -1069,11 +1532,13 @@ def kernel_table(merge_res, packed_res, pend_res, paths, probes):
     # time and bound of A, B, C at the shape each path gives them
     at_path = {
         "merge": {"batch": merge_res["batch"],
-                  "sustained": merge_res["flush"]},
+                  "sustained": merge_res["flush"],
+                  "cli": merge_res["cli 64m round"]},
         "pending_merge": {"sustained": pend_res[(PEND_SHAPE[0], 0.3)],
                           "sustained_packed": pend_res[(PEND_SHAPE[0], 0.3)],
                           "capacity": pend_res[(PEND_CAPACITY[0],
-                                                PEND_CAPACITY[3])]},
+                                                PEND_CAPACITY[3])],
+                          "cli": pend_res[(PEND_CLI[0], PEND_CLI[3])]},
         "merge_packed": {"sustained_packed": packed_res["sustained"],
                          "capacity": packed_res["flush"]},
     }
@@ -1097,7 +1562,8 @@ def kernel_table(merge_res, packed_res, pend_res, paths, probes):
         main.append(entry(
             name, source, replaces,
             paths[headline][0][name], max(r["err"] for r in res.values()),
-            first, shapes=shapes(res), by_path=path_rows))
+            first, shapes=shapes(res), by_path=path_rows,
+            launches_by_path={p: c[name] for p, (c, _) in paths.items()}))
     probes_out = []
     toy = dict(probes["toy"], bound_ms=_timing.bound_ms(2 * 4 * 8 * 128))
     probes_out.append(entry("toy", "probes/toy.cu",
@@ -1177,10 +1643,13 @@ def main():
     packed_res = timed("2b", phase_packed, torch)
     pend_res = timed("3", phase_pending, torch)
     timed("4", phase_small, torch, ReadGen)
-    paths = timed("5", phase_main, torch, ReadGen)
+    paths, kept = timed("5", phase_main, torch, ReadGen)
     paths.update(timed("6", phase_capacity, torch, ReadGen))
     probes, probe_launches = phase_probes(torch)
     probes["launches"] = probe_launches
+    timed("8", phase_queries, torch, kept, smi)
+    cli_paths, _ = timed("9", phase_cli, torch, ReadGen, smi)
+    paths.update(cli_paths)
 
     kernels = kernel_table(merge_res, packed_res, pend_res, paths, probes)
     say(json.dumps({"kernels": kernels,

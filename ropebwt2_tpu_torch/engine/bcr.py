@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from ..alphabet import NSYM, SO_IO, SO_RCLO, SO_RLO
-from ..index.flat import FlatBwt, empty_state, grow_state
+from ..index.flat import FlatBwt, empty_state, grow_state, resolve_device
 from ..index.merge_cuda import merge
 from ..index.merge_packed_cuda import merge_packed
 from ..index.packed import (
@@ -53,6 +53,7 @@ I64 = torch.int64
 PLAN_ALIGN = 1 << 17  # upfront-plan capacity rounding (the JAX package's)
 PACK_ALIGN = 1 << 20  # capacity rounding of the packed tier
 PACK4_AUTO = 1 << 31  # pack4="auto": pack past 2^31 symbols (the JAX rule)
+RUN_CHUNK = 1 << 28  # symbols per chunk of the run export (run_arrays)
 
 
 @dataclasses.dataclass
@@ -335,12 +336,7 @@ class TorchBwt:
                  pack4="auto"):
         if so not in (SO_IO, SO_RLO, SO_RCLO):
             raise ValueError(f"unknown sorting order {so}")
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "TorchBwt: no CUDA device; pass device='cpu' to build "
-                    "on the CPU with the plain versions of the kernels")
-            device = "cuda"
+        device = resolve_device(device, "TorchBwt")
         if pack4 == "auto":
             self._pack_thr = PACK4_AUTO
         elif isinstance(pack4, int) and pack4 >= 0:
@@ -349,7 +345,7 @@ class TorchBwt:
             raise ValueError(f"pack4 must be 'auto' or an int >= 0: {pack4!r}")
         self.so = so
         self.K = K
-        self.device = torch.device(device)
+        self.device = device
         self.state = empty_state(K, K, self.device)
         # host mirrors: the driver never reads device scalars mid-build
         self._n = 0  # total symbols
@@ -504,20 +500,60 @@ class TorchBwt:
         """Global per-symbol counts ($,A,C,G,T,N), like mr_get_c."""
         return self.state.pcounts.sum(dim=0).cpu().numpy()
 
+    def _symbols(self, lo: int, hi: int):
+        """int8 symbols [lo, hi) of the BWT on the index's device (a packed
+        index unpacks only the packed rows that cover them)."""
+        if isinstance(self.state, PackedFlatBwt):
+            b0 = lo // 256 * 128
+            b1 = -(-hi // 256) * 128
+            x = unpack_bwt(self.state.pbwt[b0:b1])
+            return x[lo - 2 * b0: hi - 2 * b0]
+        return self.state.bwt[lo:hi]
+
     def bwt_array(self) -> np.ndarray:
         """The full BWT as an int8 numpy array (a packed index unpacks the
         packed rows that cover it, on its device)."""
-        if isinstance(self.state, PackedFlatBwt):
-            nbytes = -(-self._n // 256) * 128
-            return unpack_bwt(self.state.pbwt[:nbytes])[: self._n].cpu().numpy()
-        return self.state.bwt[: self._n].cpu().numpy()
+        return self._symbols(0, self._n).cpu().numpy()
+
+    def run_arrays(self, bounds=None, chunk=RUN_CHUNK):
+        """The BWT as runs: (sym uint8[R], len int64[R]) numpy arrays.
+
+        Run heads are found on the index's device, ``chunk`` symbols at a
+        time (a packed index unpacks one chunk at a time), so no O(n)
+        intermediate exists; only the run arrays come back to the host.
+        Runs are also split at every offset in ``bounds`` (the FMR writer
+        splits them at the partition offsets), so a run never crosses one."""
+        n = self._n
+        if chunk % 256:
+            raise ValueError(f"chunk {chunk} is not a multiple of 256")
+        cuts = np.unique(np.asarray([] if bounds is None else bounds,
+                                    dtype=np.int64))
+        cuts = cuts[(cuts > 0) & (cuts < n)]
+        syms, lens, cont = [], [], []
+        for lo in range(0, n, chunk):
+            hi = min(n, lo + chunk)
+            x = self._symbols(lo, hi)
+            head = torch.ones(hi - lo, dtype=torch.bool, device=x.device)
+            head[1:] = x[1:] != x[:-1]
+            local = cuts[(cuts > lo) & (cuts < hi)] - lo
+            if local.size:
+                head[torch.from_numpy(local).to(x.device)] = True
+            h = torch.nonzero(head)[:, 0]
+            s = x[h].to(torch.uint8).cpu().numpy()
+            ln = torch.diff(h, append=h.new_full((1,), hi - lo)).cpu().numpy()
+            # the first run goes on from the previous chunk's last one
+            c = np.zeros(s.size, dtype=bool)
+            c[0] = bool(syms) and s[0] == syms[-1][-1] and lo not in cuts
+            syms.append(s)
+            lens.append(ln)
+            cont.append(c)
+        if not syms:
+            return np.zeros(0, np.uint8), np.zeros(0, np.int64)
+        s, ln, c = (np.concatenate(a) for a in (syms, lens, cont))
+        first = np.flatnonzero(~c)
+        return s[first], np.add.reduceat(ln, first).astype(np.int64)
 
     def runs(self):
         """Run-length view [(sym, len), ...] of the BWT."""
-        b = self.bwt_array()
-        if b.size == 0:
-            return []
-        change = np.flatnonzero(np.diff(b)) + 1
-        starts = np.concatenate([[0], change])
-        ends = np.concatenate([change, [b.size]])
-        return [(int(b[s]), int(e - s)) for s, e in zip(starts, ends)]
+        s, ln = self.run_arrays()
+        return list(zip(s.tolist(), ln.tolist()))

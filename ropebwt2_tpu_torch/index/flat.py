@@ -16,12 +16,25 @@ never read: every consumer bounds reads to pos <= n.
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from ..alphabet import NSYM
 
 PAD = 6  # fill value for fresh capacity; outside the 6-symbol alphabet
 PAD_TAIL = 2048  # tail slack symbols (same layout as the JAX state)
+
+
+def resolve_device(device, who: str):
+    """The device an index lives on: None means the card, and raises when
+    there is none (pass device="cpu" for the plain versions)."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{who}: no CUDA device; pass device='cpu' to build on the "
+                "CPU with the plain versions of the kernels")
+        device = "cuda"
+    return torch.device(device)
 
 
 def table_dtype(cap: int):
@@ -77,3 +90,37 @@ def grow_state(state: FlatBwt, new_cap: int, K: int) -> FlatBwt:
     extra = (new_cap + PAD_TAIL) // K + 1 - old_rows
     blk = torch.cat([kept, kept[-1:].expand(extra, NSYM)])
     return dataclasses.replace(state, bwt=bwt, blk_prefix=blk)
+
+
+def state_from_partition_runs(partition_runs, K: int, cap: int = None,
+                              device=None) -> FlatBwt:
+    """Build the state from six per-partition run lists [(symbol, length),
+    ...] (the FMR restore path, -i), on ``device`` (None: the card)."""
+    from .rank import build_block_tables
+
+    device = resolve_device(device, "state_from_partition_runs")
+    parts = []
+    psize = np.zeros(NSYM, dtype=np.int64)
+    pcounts = np.zeros((NSYM, NSYM), dtype=np.int64)
+    for b in range(NSYM):
+        runs = np.asarray(partition_runs[b], dtype=np.int64).reshape(-1, 2)
+        parts.append(np.repeat(runs[:, 0].astype(np.int8), runs[:, 1]))
+        psize[b] = parts[-1].shape[0]
+        np.add.at(pcounts[b], runs[:, 0], runs[:, 1])
+    flat = np.concatenate(parts)
+    n = flat.shape[0]
+    if cap is None:
+        cap = max(K, -(-n // K) * K)
+    if cap % K or cap < n:
+        raise ValueError(f"capacity {cap} does not hold {n} symbols in "
+                         f"blocks of {K}")
+    buf = np.full(cap + PAD_TAIL, PAD, dtype=np.int8)
+    buf[:n] = flat
+    bwt = torch.from_numpy(buf).to(device)
+    return FlatBwt(
+        bwt=bwt,
+        n=torch.tensor(n, dtype=torch.int64, device=device),
+        psize=torch.from_numpy(psize).to(device),
+        pcounts=torch.from_numpy(pcounts).to(device),
+        blk_prefix=build_block_tables(bwt, K, dtype=table_dtype(cap)),
+    )

@@ -1,9 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card, and the port's build on the card against its build on the CPU.
 
-These tests need an NVIDIA GPU and skip without one.  The last ones hold
+These tests need an NVIDIA GPU and skip without one.  Later ones hold
 the probe suite's kernels (ropebwt2_tpu_torch/probes) against their plain
-versions.  They import neither
+versions, and the queries, the run export and the CLI on the card against
+the CPU.  They import neither
 JAX nor the test helpers in conftest.py, so they also run where JAX is not
 installed:
 
@@ -16,7 +17,9 @@ import numpy as np
 import pytest
 import torch
 
+from ropebwt2_tpu_torch import cli
 from ropebwt2_tpu_torch.engine import TorchBwt
+from ropebwt2_tpu_torch.engine import query
 from ropebwt2_tpu_torch.index import merge_cuda, merge_packed_cuda, \
     pending_cuda
 from ropebwt2_tpu_torch.index.flat import PAD_TAIL, table_dtype
@@ -461,3 +464,57 @@ def test_merge_kernel_in_a_cuda_graph(dev):
         for got, gpre in outs[1:]:
             assert torch.equal(got[:live], want[:live])
             assert torch.equal(gpre[:rows], wpre[:rows])
+
+
+@pytest.mark.parametrize("pack4", [0, 1])
+def test_queries_and_run_arrays_on_the_card_match_the_cpu(dev, pack4):
+    rng = np.random.default_rng(70 + pack4)
+    reads = [rng.integers(1, 6, int(k)).astype(np.int8)
+             for k in rng.integers(1, 120, 2000)]
+    reads += [np.full(int(k), 2, np.int8) for k in rng.integers(1, 500, 50)]
+    engines = [TorchBwt(so=1, device=d, pack4=pack4) for d in (dev, "cpu")]
+    for eng in engines:
+        eng.insert_multi(reads)
+    card, cpu = (e.state for e in engines)
+    n = engines[0].n
+    pos = np.sort(rng.integers(0, n + 1, 5000))
+    y = np.minimum(pos + rng.integers(0, 300, pos.size), n)
+    c = rng.integers(0, 6, pos.size)
+    for fn, args in ((query.rank1a, (pos,)), (query.rank2a, (pos, y)),
+                     (query.rank11, (pos, c)), (query.rank21, (pos, y, c))):
+        got, want = fn(card, *args), fn(cpu, *args)
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert g.device.type == dev.type and torch.equal(g.cpu(), w)
+    ik = np.stack([pos, np.zeros_like(pos), y - pos], axis=1)
+    for back in (True, False):
+        assert torch.equal(query.extend(card, ik, is_back=back).cpu(),
+                           query.extend(cpu, ik, is_back=back))
+    pats = rng.integers(1, 5, (3000, 12))
+    lens = rng.integers(1, 13, 3000)
+    for g, w in zip(query.backward_search(card, pats, lens),
+                    query.backward_search(cpu, pats, lens)):
+        assert torch.equal(g.cpu(), w)
+    offs = np.concatenate([[0], np.cumsum(cpu.psize.numpy())])
+    for bounds in (None, offs):
+        for chunk in (256, 1 << 28):
+            got = engines[0].run_arrays(bounds=bounds, chunk=chunk)
+            want = engines[1].run_arrays(bounds=bounds, chunk=chunk)
+            assert all(np.array_equal(a, b) for a, b in zip(got, want))
+
+
+def test_cli_builds_on_the_card_by_default(dev, tmp_path, capsys):
+    """main() with no device builds on the card; its FMD equals the CPU's."""
+    rng = np.random.default_rng(72)
+    lut = np.frombuffer(b"$ACGTN", np.uint8)
+    p = tmp_path / "in.txt"
+    p.write_bytes(b"".join(lut[r].tobytes() + b"\n"
+                           for r in rng.integers(1, 5, (3000, 60))))
+    outs = []
+    for device in (None, "cpu"):
+        out = tmp_path / f"{device}.fmd"
+        assert cli.main(["-Ls", "-d", "-o", str(out), str(p)],
+                        device=device) == 0
+        outs.append(out.read_bytes())
+    assert outs[0] == outs[1]
+    assert "[M::main] device cuda" in capsys.readouterr().err
