@@ -36,8 +36,10 @@ Phases, each reported on its own line:
    0% (CTAs all new), 30% and 90% full (p_after = pcap), with no active
    lane (p_after = 0), and at the capacity path's shape (pcap 2^24, 2^20
    rows, half full), and at phase 9's fullest call (pcap 2^21, 2^18 rows,
-   1,277,990 pending); then pending_add chained over 4 rounds, a reset and 4
-   more, against the plain version round by round;
+   1,277,990 pending), and at the shapes phases 10-12 give it (half full:
+   pcap 2^21 with 2^17 rows, 2^22 with 2^19, 2^16 and 2^18 with 2^12);
+   then pending_add chained over 4 rounds, a reset and 4 more, against the
+   plain version round by round;
 4. small builds (4096 reads x 101 in 2 batches, so 0/1/2, defer_r 0/8):
    the card's BWT equals the CPU's byte for byte, and an LF walk from
    every sentinel spells back the multiset of the reads; the same builds
@@ -85,11 +87,29 @@ Phases, each reported on its own line:
    on 2^14 reads then -i with 2^14 more equals one build of both.  The
    shapes the two runs give kernels A and B must be phases 2 and 3's
    cases: the first run's as TorchBwt plans it, the second's as recorded
-   from the engine's calls (engine_calls).
+   from the engine's calls (engine_calls);
+10. the run-length tier (index/runs.py) on phase 5's sustained reads:
+   TorchBwt(so=1, runs=1), 8 prefill batches (the last profiled) and 2
+   timed; its BWT equals phase 5's flat BWT (md5); R, pcap, live slots,
+   symbols a slot, resident B/sym, peak memory;
+11. the run tier at deep coverage, scripts/configs/scale4gdeep_runs.sh's
+   configuration (150x, 0.3% errors, seed 777, batches of 2^19 reads, RLO,
+   runs_margin 0.35, R = 8) cut to DEEP_BATCHES batches: Msym/s per batch,
+   symbols a slot, resident B/sym, overflow 0, counts, md5, and an LF walk
+   from 4096 sentinel rows with the run tier's rank that spells reads of
+   the input;
+12. long reads: 4096 uniform reads of 2,000-5,000 bp in one batch (5,001
+   rounds) on the flat tier (defer_r=16) and on the run tier: equal md5s,
+   LF walks from every sentinel row of the run-tier index spell the
+   reads, rounds per second.
+   Phases 10-12 must launch kernel B, at the largest (pcap, lanes) of
+   phase 3's cases for them.
 
 Launches are counted per path: each path (the batch and the sustained
 regime of phase 5, flat and packed, the capacity build of phase 6, the
-probe suite of phase 7, the CLI's run in this process of phase 9) runs
+probe suite of phase 7, the CLI's run in this process of phase 9, the run
+tier's timed batches of phase 10, the deep-coverage build of phase 11,
+each long-read build of phase 12) runs
 with every count set to 0 just before it and is read just after. A count
 is of eager launches: the probes time short kernels in CUDA graphs,
 whose capture launches nothing and whose replays do not call the
@@ -144,6 +164,9 @@ MERGE_CASES = (  # name, cap, insertion lanes, live n, dense, active lanes
      False, CLI_BATCH),
     ("cli 64m flush", 1 << 28, 1 << 21, 3 * 102 * CLI_BATCH + 96 * CLI_LAST,
      False, 6 * CLI_LAST),
+    # a flush of phase 12's long reads on the flat tier (cap 2^24, pcap
+    # 2^16 lanes of which 16 rounds of 4096 reads at most)
+    ("long flush", 1 << 24, 1 << 16, 14_000_000, False, None),
 )
 PEND_SHAPE = (1 << 20, 1 << 17, CAP_FLUSH)  # pcap, rows per round, max vp
 # kernel B in the CLI's 4th batch at its fullest: pcap 2^21, 2^18 lanes,
@@ -185,6 +208,29 @@ FLUSH_ACTIVE = 6 << 20  # active lanes of the packed flush case
 # per round, the pending set half full (its mean over a flush cycle)
 PEND_CAPACITY = (1 << 24, 1 << 20, CAP_SCALE, 0.5)
 PEND_CHAIN = 4  # chained rounds of kernel B before and after a reset
+# phase 10: the run tier on phase 5's sustained reads; R = 16 and pcap 2^21
+# from _choose_defer with 5 * rcap standing for the capacity (rcap 30.5 M
+# to 122 M slots), the pending set half full at its mean
+PEND_RUNS = (1 << 21, 1 << 17, CAP_FLUSH, 0.5)
+# phase 11: scripts/configs/scale4gdeep_runs.sh (coverage 150x, 0.3% errors,
+# L 101, seed 777, batches of 2^19 reads, RLO, runs=1, margin 0.35, R 8),
+# cut from its 44,040,192 reads to DEEP_BATCHES batches (the coverage of the
+# drawn reads stays 150x: the genome is cut with them)
+DEEP_READS, DEEP_MBATCH, DEEP_BATCHES = 44_040_192, 1 << 19, 29
+DEEP_TOTAL = DEEP_BATCHES * DEEP_MBATCH * (L_BENCH + 1)
+PEND_DEEP = (1 << 22, 1 << 19, DEEP_TOTAL, 0.5)
+# the JAX package's record of this configuration at 29 batches (a TPU's
+# build, SCALERUNS15_r05.json): its md5 and symbols a slot, printed beside
+# this card's
+DEEP_RECORD = ("8c27991cdea3ff556ac0144b0eff8fb5", 9.47)
+# phase 12: long reads, tests/test_longreads.py's kbp case at card scale:
+# 4096 uniform reads of 2,000-5,000 bp (~14.4 M symbols, 5,001 rounds in one
+# batch) on the flat tier (R = 16: pcap 2^16) and on the run tier (R = 64
+# from 5 * rcap: pcap 2^18)
+LONG_READS, LONG_LEN, LONG_SEED = 4096, (2000, 5000), 12
+LONG_N = 14_400_000  # about its symbols
+PEND_LONG = (1 << 16, 1 << 12, LONG_N, 0.5)
+PEND_LONG_RUNS = (1 << 18, 1 << 12, LONG_N, 0.5)
 # kernel ms of the kernels that the present designs replaced, from this
 # script (the merge wrapper's: probe F, whole wrapper on the device) on an
 # NVIDIA H100 80GB HBM3 at 700 W, printed beside the new times: B by
@@ -595,6 +641,9 @@ def phase_pending(torch):
     cases = [(*PEND_SHAPE, frac, None) for frac in (0.0, 0.3, 0.9)]
     cases.append((*PEND_CAPACITY, None))
     cases.append(PEND_CLI)
+    # the shapes the run-tier and long-read phases (10-12) give kernel B
+    cases += [(*c, None) for c in (PEND_RUNS, PEND_DEEP, PEND_LONG,
+                                   PEND_LONG_RUNS)]
     cases.append((*PEND_SHAPE, 0.0, 0))  # no active lane: p_after = 0
     out = {}
     for pcap, m, nmax, frac, a in cases:
@@ -743,6 +792,9 @@ def report_profile(label, wall, rows, top=12, tag="[5]"):
     busy = sum(r[1] for r in rows) / 1e6
     say(f"{tag} profile {label}: wall {wall:.4f} s (profiled), device busy "
         f"{busy:.4f} s, idle share {1 - busy / wall:.3f}")
+    kinds = by_kind(rows)
+    say(f"{tag} profile {label}, device time by kind: " + ", ".join(
+        f"{k} {100 * us / 1e6 / busy:.1f}%" for k, us in kinds))
     for name, us, calls in rows[:top]:
         say(f"{tag}   {us / 1e3:10.3f} ms {100 * us / 1e6 / busy:5.1f}% "
             f"{calls:7d}x {name[:90]}")
@@ -757,6 +809,32 @@ def report_profile(label, wall, rows, top=12, tag="[5]"):
     with open(os.path.join(out, f"profile_{label.split()[0]}.txt"), "w") as f:
         for name, us, calls in rows:
             f.write(f"{us:.1f}\t{calls}\t{name}\n")
+
+
+KINDS = (  # kind of a profiled kernel, by the first match in its name
+    ("kernels A, B, C", ("merge_kernel", "pending_kernel",
+                         "merge_packed_kernel")),
+    ("searchsorted", ("searchsorted",)),
+    ("bucket sort", ("sort", "radix", "Sort")),
+    ("scans", ("scan", "cumsum", "cummax", "cummin", "Scan")),
+    ("gathers, scatters, index_add_", ("index", "gather", "scatter",
+                                       "Index", "Gather", "Scatter")),
+    ("copies and cat", ("copy", "Copy", "cat", "Cat", "memcpy", "Memcpy",
+                        "memset", "Memset", "fill")),
+    ("sum reductions", ("reduce", "Reduce", "sum")),
+    ("elementwise", ("elementwise", "Elementwise", "vectorized",
+                     "unrolled")),
+)
+
+
+def by_kind(rows):
+    """[(kind, device us)] of a profile's rows, largest first."""
+    tot = {}
+    for name, us, _ in rows:
+        kind = next((k for k, keys in KINDS if any(x in name for x in keys)),
+                    "other")
+        tot[kind] = tot.get(kind, 0.0) + us
+    return sorted(tot.items(), key=lambda kv: -kv[1])
 
 
 def phase_main(torch, ReadGen):
@@ -859,6 +937,7 @@ def phase_main(torch, ReadGen):
     p_cap = eng.state.cap
     kept["packed"] = to_host(eng)
     kept["reads"] = sustained_batches[0][:QUERY_CHECKS]
+    kept["md5"] = flat_md5  # phase 10 holds the run tier to it
     del eng
     torch.cuda.empty_cache()
     say(f"[5] sustained regime, packed tier (pack4=1): cap {p_cap} R "
@@ -904,21 +983,18 @@ def read_hashes(mat):
     return h
 
 
-def lf_walk(torch, st, counts, rows, steps):
-    """LF walks on the card from ``rows`` of a packed index, with its
-    packed rank: the (W, steps) symbols read, 0 once a walk has reached
-    its string's sentinel."""
-    from ropebwt2_tpu_torch.index.packed import rank_global_packed
-
+def lf_walk(torch, rank, counts, rows, steps):
+    """LF walks on the card from ``rows`` of an index, with its rank
+    (rank(pos) -> (W, 6)): the (W, steps) int8 symbols read, 0 once a walk
+    has reached its string's sentinel."""
     C = torch.cumsum(counts, 0) - counts
     live = torch.ones_like(rows, dtype=torch.bool)
     out = []
     for _ in range(steps):
-        r0 = rank_global_packed(st.pbwt, st.blkA, st.blkB, rows)
-        s = (rank_global_packed(st.pbwt, st.blkA, st.blkB, rows + 1)
-             - r0).argmax(dim=1)
+        r0 = rank(rows)
+        s = (rank(rows + 1) - r0).argmax(dim=1)
         live &= s != 0
-        out.append(torch.where(live, s, 0))
+        out.append(torch.where(live, s, 0).to(torch.int8))
         rows = torch.where(live, C[s] + r0.gather(1, s[:, None])[:, 0], rows)
     return torch.stack(out, dim=1)
 
@@ -1026,8 +1102,10 @@ def phase_capacity(torch, ReadGen):
         f"{rank_err} (tolerance 0)")
 
     # LF walks from sentinel rows spell reads of the input
-    spelled = lf_walk(torch, st, torch.from_numpy(eng.counts()).to(DEV),
-                      torch.arange(SCALE_WALKS, device=DEV), L + 1)
+    spelled = lf_walk(
+        torch, lambda p: rank_global_packed(st.pbwt, st.blkA, st.blkB, p),
+        torch.from_numpy(eng.counts()).to(DEV),
+        torch.arange(SCALE_WALKS, device=DEV), L + 1)
     spelled = spelled.cpu().numpy()
     shaped = bool((spelled[:, :L] != 0).all() and (spelled[:, L] == 0).all())
     table = np.sort(np.concatenate(hashes))
@@ -1504,6 +1582,251 @@ def phase_cli(torch, ReadGen, smi):
     return {"cli": (launches, nbatch)}, {"run1_s": wall, "run2_s": wall2}
 
 
+# --------------------------------------------------------------- phase 10
+
+def resident_bytes(st):
+    """Bytes of a run-tier index's arrays: rsym, rend, bstart, bocc."""
+    return sum(t.numel() * t.element_size()
+               for t in (st.rsym, st.rend, st.bstart, st.bocc))
+
+
+def pending_shape_ok(calls, case):
+    """Kernel B's largest recorded call (pcap, lanes) == the phase 3 case's;
+    returns (ok, the call)."""
+    big = largest_calls(calls)["pending"]
+    return big is not None and big[:2] == tuple(case[:2]), big
+
+
+def phase_runs(torch, ReadGen, flat_md5, smi):
+    """The run tier on phase 5's sustained reads: TorchBwt(so=1, runs=1),
+    8 prefill batches (the last profiled) and 2 timed; its BWT must equal
+    phase 5's flat BWT (md5)."""
+    from ropebwt2_tpu_torch.engine import TorchBwt
+
+    gen = ReadGen(seed=0, nreads=M_BENCH * (1 + PREFILL + SUSTAIN),
+                  L=L_BENCH, mode="coverage", cov=47.0, err=0.01)
+    gen.batch(M_BENCH)  # the batch regime's reads
+    batches = [gen.batch(M_BENCH).view(np.int8)
+               for _ in range(PREFILL + SUSTAIN)]
+    syms = M_BENCH * (L_BENCH + 1)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = TorchBwt(so=1, K=128, device=DEV, runs=1)
+    t0 = time.perf_counter()
+    for bt in batches[:PREFILL - 1]:
+        eng.insert_multi(bt)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    wall, rows = profile(lambda: eng.insert_multi(batches[PREFILL - 1]))
+    report_profile("runs sustained (prefill batch 8)", wall, rows,
+                   tag="[10]")
+    walls = []
+    with engine_calls() as calls:
+        reset_launches()  # the run tier's sustained path: the timed batches
+        for bt in batches[PREFILL:]:
+            t0 = time.perf_counter()
+            eng.insert_multi(bt)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        launches = read_launches()
+        shape_ok, big = pending_shape_ok(calls, PEND_RUNS)
+    peak = torch.cuda.max_memory_allocated()
+    st, n = eng.state, eng.n
+    defer_r, pcap = eng._choose_defer(M_BENCH)
+    cnt = eng.counts()
+    counts_ok = int(cnt[0]) == M_BENCH * (PREFILL + SUSTAIN) and \
+        int(cnt.sum()) == n
+    nslot, rcap = int(st.nslot), st.rcap
+    res = resident_bytes(st)
+    md5 = text_md5(eng.bwt_array())
+    del eng, st
+    torch.cuda.empty_cache()
+    say(f"[10] run tier, sustained regime (runs=1): prefill {PREFILL - 1} "
+        f"batches {prefill_s:.3f} s (+1 profiled), timed walls "
+        f"{[round(w, 4) for w in walls]} s, {syms / min(walls) / 1e6:.3f} "
+        f"Msym/s (best), n {n}; R {defer_r} pcap {pcap}; {smi}")
+    say(f"[10] run tier: {nslot} live slots of {rcap}, {n / nslot:.3f} "
+        f"symbols a slot; "
+        f"resident {res} B ({res / n:.4f} B/sym: rsym + rend + bstart + "
+        f"bocc, against the packed tier's 0.6875 and the flat tier's "
+        f"1.1875 B per symbol of capacity); "
+        f"peak device memory {peak} B ({peak / 2**30:.3f} GiB); launches "
+        f"{launched(launches)}; kernel B's largest call (pcap, lanes, "
+        f"pending, active) {big}, == phase 3's run case {shape_ok}")
+    say(f"[10] run-tier BWT == phase 5's flat BWT (md5 of the text "
+        f"encoding): {md5 == flat_md5} ({md5}, {flat_md5}); counts "
+        f"{counts_ok}")
+    if md5 != flat_md5 or not counts_ok or not shape_ok:
+        raise AssertionError("phase 10 failed its checks")
+    if launches["pending_merge"] == 0:
+        raise AssertionError(f"kernel B never launched: {launches}")
+    return {"runs": (launches, SUSTAIN)}
+
+
+# --------------------------------------------------------------- phase 11
+
+def phase_deep(torch, ReadGen, smi):
+    """The run tier at deep coverage: scripts/configs/scale4gdeep_runs.sh's
+    configuration cut to DEEP_BATCHES batches; per batch Msym/s, then
+    symbols a slot, resident B/sym, overflow, md5, counts and an LF walk
+    from sentinel rows that spells reads of the input."""
+    from ropebwt2_tpu_torch.engine import TorchBwt, query
+
+    mb, nb, L = DEEP_MBATCH, DEEP_BATCHES, L_BENCH
+    nreads = mb * nb
+    total = nreads * (L + 1)
+    say(f"[11] cut: scale4gdeep_runs.sh's {DEEP_READS} reads x {L} cut to "
+        f"{nb} batches of {mb} reads: {nreads} reads, {total} symbols, at "
+        f"its coverage (150x over a genome cut with the reads), to stay "
+        f"inside the time limit")
+    gen = ReadGen(seed=777, nreads=nreads, L=L, mode="coverage", cov=150.0,
+                  err=0.003)
+
+    def draw():  # the next batch and the hashes of its reads as walked
+        t0 = time.perf_counter()
+        bt = gen.batch(mb).view(np.int8)
+        return bt, read_hashes(bt[:, ::-1]), time.perf_counter() - t0
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = TorchBwt(so=1, K=128, device=DEV, defer_r=8, runs=1,
+                   runs_margin=0.35)
+    hashes, walls, gen_s = [], [], 0.0
+    t_all = time.perf_counter()
+    with engine_calls() as calls, ThreadPoolExecutor(max_workers=1) as pool:
+        reset_launches()  # the deep-coverage path
+        nxt = pool.submit(draw)
+        for i in range(nb):
+            bt, h, g = nxt.result()
+            gen_s += g
+            hashes.append(h)
+            if i + 1 < nb:
+                nxt = pool.submit(draw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.insert_multi(bt)  # reads nslot and overflow when it ends
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            st = eng.state
+            say(f"[11] batch {i + 1}: {walls[-1]:.4f} s, "
+                f"{mb * (L + 1) / walls[-1] / 1e6:.3f} Msym/s, n {eng.n}, "
+                f"nslot {int(st.nslot)}, rcap {st.rcap}, overflow "
+                f"{int(st.overflow)}")
+        launches = read_launches()
+        shape_ok, big = pending_shape_ok(calls, PEND_DEEP)
+    build_s = time.perf_counter() - t_all
+    peak = torch.cuda.max_memory_allocated()
+    st, n = eng.state, eng.n
+    nslot, overflow = int(st.nslot), int(st.overflow)
+    res = resident_bytes(st)
+    live = (st.rsym.element_size() + st.rend.element_size()) * nslot \
+        + (st.bstart.element_size() * 7) * -(-nslot // 128)
+    cnt = eng.counts()
+    counts_ok = int(cnt[0]) == nreads and int(cnt.sum()) == total == n
+    steady = walls[1:]
+    say(f"[11] built {n} symbols in {build_s:.3f} s (reads drawn on a host "
+        f"thread meanwhile, {gen_s:.3f} s); first batch {walls[0]:.4f} s; "
+        f"steady {mb * (L + 1) * len(steady) / sum(steady) / 1e6:.3f} "
+        f"Msym/s over batches 2-{nb} (walls {min(steady):.4f}-"
+        f"{max(steady):.4f} s); all-in {n / build_s / 1e6:.3f} Msym/s; "
+        f"{smi}")
+    say(f"[11] {nslot} live slots of {st.rcap}, {n / nslot:.3f} symbols a "
+        f"slot (the JAX package's record on a TPU: {DEEP_RECORD[1]}); "
+        f"resident {res} B, {res / n:.4f} B/sym allocated, {live / n:.4f} "
+        f"B/sym live (rsym + rend + bstart + bocc; the packed tier 0.6875); "
+        f"tables {st.bstart.dtype}; overflow {overflow}; peak device memory "
+        f"{peak} B ({peak / 2**30:.3f} GiB); counts {cnt.tolist()} {counts_ok}"
+        f"; launches {launched(launches)}; kernel B's largest call {big}, == "
+        f"phase 3's deep case {shape_ok}")
+
+    spelled = lf_walk(torch, lambda p: query.rank1a(st, p),
+                      torch.from_numpy(cnt).to(DEV),
+                      torch.arange(SCALE_WALKS, device=DEV), L + 1)
+    spelled = spelled.cpu().numpy()
+    shaped = bool((spelled[:, :L] != 0).all() and (spelled[:, L] == 0).all())
+    table = np.sort(np.concatenate(hashes))
+    h = read_hashes(spelled[:, :L].astype(np.uint8))
+    found = int((table[np.searchsorted(table, h).clip(max=table.size - 1)]
+                 == h).sum())
+    say(f"[11] LF walk from {SCALE_WALKS} sentinel rows with the run tier's "
+        f"rank on the card: {L} symbols then the sentinel {shaped}; {found} "
+        f"of {SCALE_WALKS} spell a read of the input")
+    tm = time.perf_counter()
+    md5 = text_md5(eng.bwt_array())
+    say(f"[11] bwt md5 {md5} ({time.perf_counter() - tm:.3f} s incl. "
+        f"transfer); the JAX package's record of {DEEP_RECORD[1]} symbols a "
+        f"slot at 29 batches has {DEEP_RECORD[0]} (its seed is not "
+        f"recorded): equal {md5 == DEEP_RECORD[0]}")
+    del eng, st
+    torch.cuda.empty_cache()
+    if overflow or not counts_ok or not shaped or found != SCALE_WALKS \
+            or not shape_ok:
+        raise AssertionError("phase 11 failed its checks")
+    if launches["pending_merge"] == 0:
+        raise AssertionError(f"kernel B never launched: {launches}")
+    return {"runs_deep": (launches, nb)}
+
+
+# --------------------------------------------------------------- phase 12
+
+def phase_long(torch, smi):
+    """Long reads: LONG_READS uniform reads of 2,000-5,000 bp in one batch
+    (thousands of rounds) on the flat tier (defer_r=16) and the run tier;
+    equal md5s, and LF walks from every sentinel row of the run-tier
+    index spell the reads (the flat index is held to it by md5)."""
+    from ropebwt2_tpu_torch.engine import TorchBwt, query
+
+    rng = np.random.default_rng(LONG_SEED)
+    lens = rng.integers(LONG_LEN[0], LONG_LEN[1] + 1, LONG_READS)
+    reads = np.split(rng.integers(1, 5, int(lens.sum())).astype(np.int8),
+                     np.cumsum(lens)[:-1])
+    rounds = int(lens.max()) + 1
+    want = sorted(r[::-1].tobytes() for r in reads)
+    out, md5s = {}, {}
+    for path, kw, case in (("long", {"defer_r": 16}, PEND_LONG),
+                           ("long_runs", {"runs": 1}, PEND_LONG_RUNS)):
+        torch.cuda.empty_cache()
+        eng = TorchBwt(so=1, K=128, device=DEV, **kw)
+        torch.cuda.synchronize()
+        with engine_calls() as calls:
+            reset_launches()  # this long-read path
+            t0 = time.perf_counter()
+            eng.insert_multi(reads)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            shape_ok, big = pending_shape_ok(calls, case)
+        st, n = eng.state, eng.n
+        md5s[path] = text_md5(eng.bwt_array())
+        walk_ok, walk = True, "held to the other build by md5"
+        if path == "long_runs":
+            t0 = time.perf_counter()
+            spelled = lf_walk(torch, lambda p: query.rank1a(st, p),
+                              torch.from_numpy(eng.counts()).to(DEV),
+                              torch.arange(LONG_READS, device=DEV), rounds)
+            spelled = spelled.cpu().numpy()
+            walk_ok = sorted(r[r != 0].tobytes() for r in spelled) == want
+            walk = (f"LF walk from every sentinel row spells the reads "
+                    f"{walk_ok} ({time.perf_counter() - t0:.3f} s)")
+        say(f"[12] {path} ({type(st).__name__}, {kw}): {LONG_READS} reads "
+            f"of {int(lens.min())}-{int(lens.max())} bp, n {n}, {rounds} "
+            f"rounds in {wall:.3f} s, {rounds / wall:.1f} rounds/s, "
+            f"{n / wall / 1e6:.3f} Msym/s; {walk}; launches "
+            f"{launched(launches)}; kernel B's largest call {big}, == phase "
+            f"3's case {shape_ok}; {smi}")
+        if not walk_ok or not shape_ok:
+            raise AssertionError(f"phase 12 failed its checks ({path})")
+        if launches["pending_merge"] == 0:
+            raise AssertionError(f"kernel B never launched: {launches}")
+        out[path] = (launches, 1)
+        del eng, st
+    same = md5s["long"] == md5s["long_runs"]
+    say(f"[12] flat and run-tier BWTs equal (md5): {same} ({md5s['long']})")
+    if not same:
+        raise AssertionError("the long-read builds differ")
+    return out
+
+
 def kernel_table(merge_res, packed_res, pend_res, paths, probes):
     """The kernels line: A, B, C with their launches per batch on every
     path, their time, plain time and bound at the shape of each path, and
@@ -1533,12 +1856,17 @@ def kernel_table(merge_res, packed_res, pend_res, paths, probes):
     at_path = {
         "merge": {"batch": merge_res["batch"],
                   "sustained": merge_res["flush"],
-                  "cli": merge_res["cli 64m round"]},
+                  "cli": merge_res["cli 64m round"],
+                  "long": merge_res["long flush"]},
         "pending_merge": {"sustained": pend_res[(PEND_SHAPE[0], 0.3)],
                           "sustained_packed": pend_res[(PEND_SHAPE[0], 0.3)],
                           "capacity": pend_res[(PEND_CAPACITY[0],
                                                 PEND_CAPACITY[3])],
-                          "cli": pend_res[(PEND_CLI[0], PEND_CLI[3])]},
+                          "cli": pend_res[(PEND_CLI[0], PEND_CLI[3])],
+                          **{path: pend_res[(c[0], c[3])] for path, c in (
+                              ("runs", PEND_RUNS), ("runs_deep", PEND_DEEP),
+                              ("long", PEND_LONG),
+                              ("long_runs", PEND_LONG_RUNS))}},
         "merge_packed": {"sustained_packed": packed_res["sustained"],
                          "capacity": packed_res["flush"]},
     }
@@ -1650,6 +1978,9 @@ def main():
     timed("8", phase_queries, torch, kept, smi)
     cli_paths, _ = timed("9", phase_cli, torch, ReadGen, smi)
     paths.update(cli_paths)
+    paths.update(timed("10", phase_runs, torch, ReadGen, kept["md5"], smi))
+    paths.update(timed("11", phase_deep, torch, ReadGen, smi))
+    paths.update(timed("12", phase_long, torch, smi))
 
     kernels = kernel_table(merge_res, packed_res, pend_res, paths, probes)
     say(json.dumps({"kernels": kernels,

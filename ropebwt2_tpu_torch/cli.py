@@ -9,8 +9,11 @@ The index is built on the card; ``main(argv, device=...)`` builds on
 another device (the tests pass "cpu").  Environment, as for the JAX
 package: ROPEBWT2_TPU_DEFER_R (the pending depth R; -1 picks it per batch),
 ROPEBWT2_TPU_PACK4 ("auto", 0, or a threshold in symbols for the 4-bit
-packed tier) and ROPEBWT2_TPU_NATIVE=0 (the Python reader and writers
-instead of the native host runtime).
+packed tier), ROPEBWT2_TPU_RUNS (0, 1, or a threshold in symbols for the
+run-length tier), ROPEBWT2_TPU_RUNS_MARGIN (run-tier slots planned per
+inserted symbol, 2.0), ROPEBWT2_TPU_RUNS_RCAP (a fixed run-tier slot
+capacity, 0 for none) and ROPEBWT2_TPU_NATIVE=0 (the Python reader and
+writers instead of the native host runtime).
 """
 
 import getopt
@@ -68,12 +71,18 @@ def parse_batch_size(arg: str) -> int:
 
 
 def engine_options():
-    """TorchBwt's defer_r and pack4 from the environment variables the JAX
-    engine reads (ROPEBWT2_TPU_DEFER_R, ROPEBWT2_TPU_PACK4)."""
-    r = int(os.environ.get("ROPEBWT2_TPU_DEFER_R", "-1"))
-    p = os.environ.get("ROPEBWT2_TPU_PACK4", "auto")
+    """TorchBwt's defer_r, pack4, runs, runs_margin and runs_rcap from the
+    environment variables the JAX engine reads (ROPEBWT2_TPU_DEFER_R,
+    ROPEBWT2_TPU_PACK4, ROPEBWT2_TPU_RUNS, ROPEBWT2_TPU_RUNS_MARGIN,
+    ROPEBWT2_TPU_RUNS_RCAP)."""
+    env = os.environ.get
+    r = int(env("ROPEBWT2_TPU_DEFER_R", "-1"))
+    p = env("ROPEBWT2_TPU_PACK4", "auto")
     return {"defer_r": None if r < 0 else r,
-            "pack4": p if p == "auto" else int(p)}
+            "pack4": p if p == "auto" else int(p),
+            "runs": int(env("ROPEBWT2_TPU_RUNS", "0")) or None,
+            "runs_margin": float(env("ROPEBWT2_TPU_RUNS_MARGIN", "2.0")),
+            "runs_rcap": int(env("ROPEBWT2_TPU_RUNS_RCAP", "0"))}
 
 
 def main(argv=None, device=None) -> int:

@@ -1,8 +1,9 @@
 """Carry an index across from the JAX package: its state, as numpy arrays,
 becomes the port's state on a chosen device.  The layouts match (the flat
 buffer keeps its PAD_TAIL slack, the packed one its vertical plane pairs
-and two-level tables), so the conversion copies the arrays and widens
-what the port keeps in int64."""
+and two-level tables, the run tier its slots, block tables and sentinel),
+so the conversion copies the arrays and widens what the port keeps in
+int64."""
 
 import numpy as np
 import torch
@@ -10,6 +11,7 @@ import torch
 from .index.flat import PAD_TAIL, FlatBwt, table_dtype
 from .index.packed import LANE, PPAD_ROWS, PackedFlatBwt
 from .index.pending import INF, PendingIndex
+from .index.runs import KR, RunBwt
 
 
 def flat_from_numpy(bwt, n, psize, pcounts, blk_prefix, device) -> FlatBwt:
@@ -48,6 +50,29 @@ def packed_from_numpy(pbwt, n, psize, pcounts, blkA, blkB,
         pcounts=_tensor(pcounts, np.int64, device),
         blkA=_tensor(blkA, np.int64, device),
         blkB=_tensor(blkB, np.int32, device),
+    )
+
+
+def runs_from_numpy(rsym, rend, bstart, bocc, nslot, n, psize, pcounts,
+                    overflow, device) -> RunBwt:
+    """RunBwt from the fields of the JAX package's RunBwt: rsym int8[rcap],
+    rend int32[rcap], bstart and bocc in its table dtype (int32 or int64,
+    kept), nslot, n, psize int[6], pcounts int[6, 6] and overflow."""
+    rsym = np.asarray(rsym, dtype=np.int8)
+    bstart = np.asarray(bstart)
+    if rsym.shape[0] % KR or bstart.shape[0] * KR != rsym.shape[0]:
+        raise ValueError(f"{rsym.shape[0]} slots do not make "
+                         f"{bstart.shape[0]} blocks of {KR}")
+    return RunBwt(
+        rsym=_tensor(rsym, np.int8, device),
+        rend=_tensor(rend, np.int32, device),
+        bstart=_tensor(bstart, bstart.dtype, device),
+        bocc=_tensor(bocc, bstart.dtype, device),
+        nslot=_tensor(nslot, np.int64, device),
+        n=_tensor(n, np.int64, device),
+        psize=_tensor(psize, np.int64, device),
+        pcounts=_tensor(pcounts, np.int64, device),
+        overflow=_tensor(overflow, np.int32, device),
     )
 
 

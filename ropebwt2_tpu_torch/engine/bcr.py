@@ -11,15 +11,18 @@ One round inserts the d-th symbol (from the end) of every active read:
   4. closed-form insertion points in START-OF-ROUND coordinates
      (mrope.c:204-224 made order-free)
   5. one merge pass applying every insertion at once (kernel A on the
-     flat tier, kernel C on the packed tier), or, in deferred mode, one
-     merge into the pending side index (kernel B) with a flush into the
-     base (kernel A or C) every R rounds
+     flat tier, kernel C on the packed tier, the run insertion of
+     index/runs.py on the run tier), or, in deferred mode, one merge into
+     the pending side index (kernel B) with a flush into the base every R
+     rounds
   6. interval update with the cross-bucket rebase (mrope.c:332-340).
 
 The JAX package's module docstring holds the invariants that make the
 start-of-round coordinates exact.  Positions are int64 throughout.  The
 rounds of a batch are a host loop that never waits on the device: no
-value is read back inside a batch.
+value is read back inside a batch.  Rounds of reads of any length run the
+same loop, thousands of them for kilobase reads.  The run tier reads its
+slot count and overflow flag once after each batch.
 """
 
 import dataclasses
@@ -47,7 +50,21 @@ from ..index.pending import (
     rank_virtual_base,
     reset_pending,
 )
-from ..index.rank import rank_global
+from ..index.rank import rank_global, scan_rows
+from ..index.runs import (
+    RCAP_ALIGN,
+    RUN_LEN_MAX,
+    RunBwt,
+    _rebuild_tables,
+    apply_insertions_runs,
+    gdt_for_symbols,
+    grow_runs_state,
+    rank_global_runs,
+    rcap_for_slots,
+    run_ends,
+    runs_from_arrays,
+    slot_lengths,
+)
 
 I64 = torch.int64
 PLAN_ALIGN = 1 << 17  # upfront-plan capacity rounding (the JAX package's)
@@ -84,15 +101,6 @@ def _excl_rows(x):
     c = torch.cumsum(x, 0)
     z = torch.zeros((1, x.shape[1]), dtype=x.dtype, device=x.device)
     return torch.cat([z, c[:-1], z, z])
-
-
-def _scan0(op, x):
-    """op (torch.cumsum / cummax / cummin) down the rows of an (M, S)
-    table, run along the last dimension of its transpose: PyTorch's CUDA
-    scan along the first dimension of a narrow table walks each column in
-    one thread."""
-    y = op(x.t().contiguous(), dim=1)
-    return (y if isinstance(y, torch.Tensor) else y.values).t()
 
 
 def _emitted_before(x, order):
@@ -146,7 +154,7 @@ def plan_round(psize, pcounts, reads: ReadStates, buf, d: int,
     head = bucket_head | (u != torch.roll(u, 1))
     hh = torch.stack([torch.where(head, arange_m, 0),
                       torch.where(bucket_head, arange_m, 0)], dim=1)
-    hh = _scan0(torch.cummax, hh)
+    hh = scan_rows(torch.cummax, hh)
     headidx, bktheadidx = hh[:, 0], hh[:, 1]
 
     # stored intervals are in progressive coordinates; E = reads in earlier
@@ -181,13 +189,13 @@ def plan_round(psize, pcounts, reads: ReadStates, buf, d: int,
     oh = (sym[:, None] == torch.arange(NSYM, device=dev)[None, :]) \
         & active[:, None]
     oh = oh.long()
-    csum = _scan0(torch.cumsum, oh)  # inclusive
+    csum = scan_rows(torch.cumsum, oh)  # inclusive
     excl = csum - oh
 
     Wc = _emitted_before(csum, order)
     We = _emitted_before(excl, order)
     is_tail = torch.cat([head[1:], head.new_ones(1)])
-    fwd = _scan0(torch.cummax, torch.cat([
+    fwd = scan_rows(torch.cummax, torch.cat([
         torch.where(head[:, None], excl, 0),
         torch.where(bucket_head[:, None], excl, 0),
         torch.where(head[:, None], We, 0),
@@ -195,7 +203,7 @@ def plan_round(psize, pcounts, reads: ReadStates, buf, d: int,
     head_excl, bkt_excl = fwd[:, :NSYM], fwd[:, NSYM:2 * NSYM]
     We_head = fwd[:, 2 * NSYM:]
     big = torch.iinfo(I64).max
-    Wc_tail = _scan0(
+    Wc_tail = scan_rows(
         torch.cummin, torch.where(is_tail[:, None], Wc, big).flip(0)
     ).flip(0)
     before_in_group = _take(Wc_tail - We_head, sym)
@@ -225,7 +233,10 @@ def plan_round(psize, pcounts, reads: ReadStates, buf, d: int,
 
 
 def _state_rank_fn(state, K):
-    """rank_fn(gpos) -> (M, 6) over the base of either tier."""
+    """rank_fn(gpos) -> (M, 6) over the base of any tier."""
+    if isinstance(state, RunBwt):
+        return lambda g: rank_global_runs(state.rend, state.rsym,
+                                          state.bstart, state.bocc, g)
     if isinstance(state, PackedFlatBwt):
         return lambda g: rank_global_packed(state.pbwt, state.blkA,
                                             state.blkB, g)
@@ -234,7 +245,11 @@ def _state_rank_fn(state, K):
 
 def _state_merge(state, pos, sym, stream, valid, n, K):
     """The state with the insertions merged into its buffer and its rank
-    tables rebuilt: kernel C on the packed tier, kernel A on the flat."""
+    tables rebuilt: the run insertion on the run tier, kernel C on the
+    packed tier, kernel A on the flat."""
+    if isinstance(state, RunBwt):
+        return dataclasses.replace(
+            state, **apply_insertions_runs(state, pos, sym, stream, valid))
     if isinstance(state, PackedFlatBwt):
         pbwt, blkA, blkB = merge_packed(state.pbwt, pos, sym, stream, valid,
                                         n, K)
@@ -260,9 +275,10 @@ def bcr_round(state, reads: ReadStates, buf, d: int, is_first: bool, *, K,
 
 
 def _flush_pending(st, pend, *, K):
-    """Apply the whole pending set to the base in one merge (kernel A or C)
-    and reset the pending index.  st.n/psize/pcounts already hold the
-    virtual totals; only the buffer and its rank tables change."""
+    """Apply the whole pending set to the base in one merge (kernel A, C
+    or the run insertion) and reset the pending index.  st.n/psize/pcounts
+    already hold the virtual totals; only the buffer and its rank tables
+    change."""
     pos, sym, stream, valid = pending_flush_args(pend)
     return _state_merge(st, pos, sym, stream, valid, st.n - pend.p, K), \
         reset_pending(pend)
@@ -321,7 +337,8 @@ class TorchBwt:
     """Host-side driver, the mrope_t equivalent: batched insertion
     (mr_insert_multi), single-string insertion, incremental growth across
     batches, and export of the BWT.  Flat int8 tier, switching to the 4-bit
-    packed tier (index/packed.py) once a build plans past a threshold.
+    packed tier (index/packed.py) or the run-length tier (index/runs.py)
+    once a build plans past a threshold.
 
     ``defer_r``: None picks the pending depth R from the capacity per batch
     (_choose_defer), 0 merges every round, R > 1 defers R rounds.
@@ -330,10 +347,18 @@ class TorchBwt:
     ``pack4``: the packed-tier threshold, as the JAX package's
     ROPEBWT2_TPU_PACK4: "auto" packs once the planned total passes 2^31
     symbols, 0 never packs, and an integer T packs past T symbols (K must
-    then be 128)."""
+    then be 128).
+    ``runs``: the run-tier threshold, as ROPEBWT2_TPU_RUNS: None or 0
+    never converts, 1 converts from the start, and an integer T past T
+    symbols (the run tier comes before the packed one).  ``runs_margin``
+    (ROPEBWT2_TPU_RUNS_MARGIN): slots planned per inserted symbol; 2.0 is
+    the worst case, and a smaller margin sizes the slots for compressible
+    data.  ``runs_rcap`` (ROPEBWT2_TPU_RUNS_RCAP): a fixed slot capacity
+    instead.  A batch that outgrows its slots raises RuntimeError after
+    it; the index is then corrupt, and its export raises too."""
 
     def __init__(self, so=SO_IO, K=128, defer_r=None, device=None,
-                 pack4="auto"):
+                 pack4="auto", runs=None, runs_margin=2.0, runs_rcap=0):
         if so not in (SO_IO, SO_RLO, SO_RCLO):
             raise ValueError(f"unknown sorting order {so}")
         device = resolve_device(device, "TorchBwt")
@@ -343,6 +368,13 @@ class TorchBwt:
             self._pack_thr = pack4 or None
         else:
             raise ValueError(f"pack4 must be 'auto' or an int >= 0: {pack4!r}")
+        if runs is not None and not (isinstance(runs, int) and runs >= 0):
+            raise ValueError(f"runs must be None or an int >= 0: {runs!r}")
+        self._runs_thr = runs or None
+        self._runs_margin = float(runs_margin)
+        self._runs_rcap = int(runs_rcap)
+        # host bound of the run tier's live slots
+        self._nslot_bound = 0
         self.so = so
         self.K = K
         self.device = device
@@ -357,11 +389,15 @@ class TorchBwt:
         full-prefix flush (~ cap) against the per-round pending work
         (~ R * mpad): R* = sqrt(ratio * cap / mpad).  The ratio 0.055 is
         the JAX package's, kept so that R and pcap match it shape for
-        shape until it is fitted on this card."""
+        shape until it is fitted on this card.  On the run tier the flush
+        walks rcap slots of ~5 bytes: 5 * rcap stands for the capacity, as
+        in the JAX package."""
         if self._defer_cfg >= 0:
             r = self._defer_cfg
         else:
-            ratio = 0.055 * self.state.cap / max(mpad, 1)
+            st = self.state
+            cap = 5 * st.rcap if isinstance(st, RunBwt) else st.cap
+            ratio = 0.055 * cap / max(mpad, 1)
             r = int(math.sqrt(ratio)) if ratio >= 1 else 0
             if r < 4:
                 r = 0  # shallow deferral does not pay for the pending work
@@ -372,12 +408,17 @@ class TorchBwt:
         return r, pending_cap(mpad, r)
 
     def _plan(self, extra_symbols: int):
-        """Grow the capacity to hold ``extra_symbols`` more.  Past the
-        pack4 threshold the index is (or becomes) packed, its capacity
-        rounded linearly to PACK_ALIGN.  Otherwise an upfront plan (>= 4x
-        the capacity, >= 2^24) rounds linearly to PLAN_ALIGN, and
-        incremental growth to a power of two."""
+        """Grow the capacity to hold ``extra_symbols`` more.  Past the runs
+        threshold the index is (or becomes) a run-tier index
+        (_plan_runs).  Past the pack4 threshold the index is (or becomes)
+        packed, its capacity rounded linearly to PACK_ALIGN.  Otherwise an
+        upfront plan (>= 4x the capacity, >= 2^24) rounds linearly to
+        PLAN_ALIGN, and incremental growth to a power of two."""
         need = self._n + extra_symbols
+        if self._runs_thr is not None and (need > self._runs_thr or
+                                           isinstance(self.state, RunBwt)):
+            self._plan_runs(need, extra_symbols)
+            return
         cap = self.state.cap
         is_packed = isinstance(self.state, PackedFlatBwt)
         if self._pack_thr is not None and (need > self._pack_thr
@@ -402,6 +443,79 @@ class TorchBwt:
         else:
             cap = _round_up(_pad_pow2(need, lo=self.K), self.K)
         self.state = grow_state(self.state, cap, self.K)
+
+    def _to_runs(self, total_bound: int):
+        """Convert the index to the run tier, on its device: its runs (the
+        export's run heads), with runs of RUN_LEN_MAX or more split into
+        halves as the JAX package splits them, in a slot capacity rounded
+        as there.  ``total_bound`` sets the tables' dtype."""
+        syms, lens = self._run_tensors(np.zeros(0, np.int64), RUN_CHUNK)
+        if lens.numel() and bool((lens >= RUN_LEN_MAX).any()):
+            half = RUN_LEN_MAX // 2
+            reps = -(-lens // half)
+            syms = syms.repeat_interleave(reps)
+            rem = (lens - (reps - 1) * half).repeat_interleave(reps)
+            last = torch.cumsum(reps, 0).repeat_interleave(reps) - 1
+            lens = torch.where(torch.arange(syms.numel(), device=syms.device)
+                               == last, rem, half)
+        nr = syms.numel()
+        self._nslot_bound = nr
+        st = self.state
+        self.state = runs_from_arrays(
+            syms, lens, rcap_for_slots(nr + max(nr // 4, RCAP_ALIGN)),
+            total_bound, self._n, st.psize, st.pcounts, device=self.device)
+
+    def _plan_runs(self, need: int, extra: int):
+        """The run tier's plan for ``extra`` more symbols (``need`` in
+        all): convert the index if it is not a run-tier index yet, widen
+        the tables to int64 when ``need`` leaves int32, then make room for
+        ``runs_margin`` slots a symbol (2 while the index holds fewer slots
+        than the batch has symbols), or for ``runs_rcap`` slots.  Unlike the
+        JAX engine, which returns after a conversion, a converted index is
+        sized for the batch too: there a first batch of more than ~8000
+        symbols overflows the conversion's 16,384 slots."""
+        if not isinstance(self.state, RunBwt):
+            self._to_runs(need)
+        st = self.state
+        if gdt_for_symbols(need).itemsize > st.bstart.element_size():
+            rend, bstart, bocc = _rebuild_tables(
+                slot_lengths(st.rend), st.rsym, st.nslot, torch.int64)
+            self.state = st = dataclasses.replace(st, rend=rend,
+                                                  bstart=bstart, bocc=bocc)
+        if self._runs_rcap > 0:
+            if self._runs_rcap > st.rcap:
+                self.state = grow_runs_state(
+                    st, rcap_for_slots(self._runs_rcap))
+            return
+        f = self._runs_margin
+        if self._nslot_bound < extra:
+            f = max(f, 2.0)  # a young index splits nearly every insertion
+        needed = self._nslot_bound + int(f * extra) + 2048
+        if needed > st.rcap:
+            self._nslot_bound = int(st.nslot)  # tighten before growing
+            needed = self._nslot_bound + int(f * extra) + 2048
+            if needed > st.rcap:
+                self.state = grow_runs_state(
+                    st, rcap_for_slots(needed + needed // 4))
+
+    def _post_batch_runs(self, total: int):
+        """After a batch on the run tier: one host read of the live slots
+        and the overflow flag; raise if the flag is set.  The slot bound
+        grows by the worst case with a margin of 2 or more (as in the JAX
+        package) and is the live count below that."""
+        st = self.state
+        if not isinstance(st, RunBwt):
+            return
+        nslot, overflow = torch.stack([st.nslot,
+                                       st.overflow.long()]).tolist()
+        if overflow:
+            raise RuntimeError(
+                f"run tier: the batch outgrew its {st.rcap} slots (raise "
+                "runs_margin or runs_rcap); the index is corrupt")
+        if self._runs_margin >= 2.0:
+            self._nslot_bound += 2 * total + 1024
+        else:
+            self._nslot_bound = nslot
 
     # --- the public insertion API ---
 
@@ -484,6 +598,7 @@ class TorchBwt:
         )
         self._n += total
         self._n_strings += m
+        self._post_batch_runs(total)
 
     def insert1(self, read):
         """Single-string insertion (mr_insert1): a one-read batch gives the
@@ -500,58 +615,114 @@ class TorchBwt:
         """Global per-symbol counts ($,A,C,G,T,N), like mr_get_c."""
         return self.state.pcounts.sum(dim=0).cpu().numpy()
 
+    def _check_runs(self):
+        """Raise if a run-tier index is corrupt (its overflow flag set)."""
+        if isinstance(self.state, RunBwt) and int(self.state.overflow):
+            raise RuntimeError("run tier: the index overflowed its slots "
+                               "and is corrupt")
+
     def _symbols(self, lo: int, hi: int):
         """int8 symbols [lo, hi) of the BWT on the index's device (a packed
-        index unpacks only the packed rows that cover them)."""
-        if isinstance(self.state, PackedFlatBwt):
+        index unpacks only the packed rows that cover them, a run-tier
+        index expands only the runs that cover them)."""
+        st = self.state
+        if isinstance(st, RunBwt):
+            if hi <= lo:
+                return st.rsym[:0]
+            ends = run_ends(st)
+            a, b = torch.searchsorted(ends, torch.tensor(
+                [lo, hi - 1], device=ends.device), right=True).tolist()
+            e = ends[a: b + 1]
+            s = e - slot_lengths(st.rend)[a: b + 1]
+            take = e.clamp(max=hi) - s.clamp(min=lo)
+            return st.rsym[a: b + 1].repeat_interleave(take,
+                                                       output_size=hi - lo)
+        if isinstance(st, PackedFlatBwt):
             b0 = lo // 256 * 128
             b1 = -(-hi // 256) * 128
-            x = unpack_bwt(self.state.pbwt[b0:b1])
+            x = unpack_bwt(st.pbwt[b0:b1])
             return x[lo - 2 * b0: hi - 2 * b0]
-        return self.state.bwt[lo:hi]
+        return st.bwt[lo:hi]
 
     def bwt_array(self) -> np.ndarray:
-        """The full BWT as an int8 numpy array (a packed index unpacks the
-        packed rows that cover it, on its device)."""
-        return self._symbols(0, self._n).cpu().numpy()
+        """The full BWT as an int8 numpy array, RUN_CHUNK symbols a copy
+        (a packed or run-tier index expands each chunk on its device)."""
+        self._check_runs()
+        out = np.empty(self._n, dtype=np.int8)
+        for lo in range(0, self._n, RUN_CHUNK):
+            hi = min(self._n, lo + RUN_CHUNK)
+            out[lo:hi] = self._symbols(lo, hi).cpu().numpy()
+        return out
 
     def run_arrays(self, bounds=None, chunk=RUN_CHUNK):
         """The BWT as runs: (sym uint8[R], len int64[R]) numpy arrays.
 
         Run heads are found on the index's device, ``chunk`` symbols at a
         time (a packed index unpacks one chunk at a time), so no O(n)
-        intermediate exists; only the run arrays come back to the host.
-        Runs are also split at every offset in ``bounds`` (the FMR writer
-        splits them at the partition offsets), so a run never crosses one."""
-        n = self._n
+        intermediate exists; a run-tier index coalesces its slots instead.
+        Only the run arrays come back to the host.  Runs are also split at
+        every offset in ``bounds`` (the FMR writer splits them at the
+        partition offsets), so a run never crosses one."""
         if chunk % 256:
             raise ValueError(f"chunk {chunk} is not a multiple of 256")
-        cuts = np.unique(np.asarray([] if bounds is None else bounds,
-                                    dtype=np.int64))
+        self._check_runs()
+        s, ln = self._run_tensors(np.asarray(
+            [] if bounds is None else bounds, dtype=np.int64), chunk)
+        return s.to(torch.uint8).cpu().numpy(), ln.cpu().numpy()
+
+    def _run_tensors(self, bounds, chunk):
+        """(sym int8, len int64) tensors on the index's device: the BWT's
+        maximal runs, split at the offsets in ``bounds``."""
+        n = self._n
+        cuts = np.unique(bounds)
         cuts = cuts[(cuts > 0) & (cuts < n)]
+        dev = self.state.n.device
+        if isinstance(self.state, RunBwt):
+            return self._slot_runs(torch.from_numpy(cuts).to(dev))
         syms, lens, cont = [], [], []
         for lo in range(0, n, chunk):
             hi = min(n, lo + chunk)
             x = self._symbols(lo, hi)
-            head = torch.ones(hi - lo, dtype=torch.bool, device=x.device)
+            head = torch.ones(hi - lo, dtype=torch.bool, device=dev)
             head[1:] = x[1:] != x[:-1]
             local = cuts[(cuts > lo) & (cuts < hi)] - lo
             if local.size:
-                head[torch.from_numpy(local).to(x.device)] = True
+                head[torch.from_numpy(local).to(dev)] = True
             h = torch.nonzero(head)[:, 0]
-            s = x[h].to(torch.uint8).cpu().numpy()
-            ln = torch.diff(h, append=h.new_full((1,), hi - lo)).cpu().numpy()
+            s = x[h]
             # the first run goes on from the previous chunk's last one
-            c = np.zeros(s.size, dtype=bool)
-            c[0] = bool(syms) and s[0] == syms[-1][-1] and lo not in cuts
+            c = torch.zeros(s.numel(), dtype=torch.bool, device=dev)
+            if syms and lo not in cuts:
+                c[0] = s[0] == syms[-1][-1]
             syms.append(s)
-            lens.append(ln)
+            lens.append(torch.diff(h, append=h.new_full((1,), hi - lo)))
             cont.append(c)
         if not syms:
-            return np.zeros(0, np.uint8), np.zeros(0, np.int64)
-        s, ln, c = (np.concatenate(a) for a in (syms, lens, cont))
-        first = np.flatnonzero(~c)
-        return s[first], np.add.reduceat(ln, first).astype(np.int64)
+            return (torch.zeros(0, dtype=torch.int8, device=dev),
+                    torch.zeros(0, dtype=I64, device=dev))
+        s, ln, c = (torch.cat(a) for a in (syms, lens, cont))
+        first = torch.nonzero(~c)[:, 0]
+        ends = torch.cumsum(ln, 0)[torch.cat([first[1:] - 1,
+                                              first.new_full((1,), -1)])]
+        return s[first], torch.diff(ends, prepend=ends.new_zeros(1))
+
+    def _slot_runs(self, cuts):
+        """_run_tensors of a run-tier index: its live slots with equal
+        neighbours coalesced (split halves and the slots that the
+        insertion's economy rules leave side by side are not maximal
+        runs), then split at ``cuts``."""
+        st = self.state
+        ns = int(st.nslot)
+        syms = st.rsym[:ns]
+        lens = slot_lengths(st.rend)[:ns].long()
+        starts = torch.cumsum(lens, 0) - lens
+        head = torch.ones(ns, dtype=torch.bool, device=syms.device)
+        head[1:] = syms[1:] != syms[:-1]
+        rs = starts[head]
+        if cuts.numel():
+            rs = torch.unique(torch.cat([rs, cuts]))
+        sym = syms[torch.searchsorted(starts, rs, right=True) - 1]
+        return sym, torch.diff(rs, append=rs.new_full((1,), self._n))
 
     def runs(self):
         """Run-length view [(sym, len), ...] of the BWT."""

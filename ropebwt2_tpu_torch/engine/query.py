@@ -2,9 +2,10 @@
 the library surface downstream tools use (mr_rank2a, mrope.c:70-105;
 rld_rank1a/2a and rld_extend, rld0.c:357-489).
 
-Every function takes the index state (a FlatBwt or a PackedFlatBwt) and a
-batch of queries: positions (Q,), intervals, or bi-intervals (Q, 3) in
-rld's convention x = (backward start, forward start, size) (rld0.h:43-46).
+Every function takes the index state (a FlatBwt, a PackedFlatBwt or a
+RunBwt) and a batch of queries: positions (Q,), intervals, or bi-intervals
+(Q, 3) in rld's convention x = (backward start, forward start, size)
+(rld0.h:43-46).
 Queries may be tensors, arrays or lists; they move to the index's device.
 The work is plain torch on that device, and every result is int64.
 """
@@ -15,27 +16,25 @@ from ..alphabet import NSYM
 from ..index.flat import FlatBwt
 from ..index.packed import PackedFlatBwt, rank_global_packed
 from ..index.rank import rank_global
+from ..index.runs import RunBwt, rank_global_runs
 
 I64 = torch.int64
 
 
-def _is_packed(state) -> bool:
-    """The state's tier: packed (True) or flat (False).  The run-length
-    tier has no port yet, and a state of it raises."""
-    if isinstance(state, PackedFlatBwt):
-        return True
-    if isinstance(state, FlatBwt):
-        return False
-    raise NotImplementedError(
-        f"queries over {type(state).__name__}: the run-length tier is not "
-        "ported yet (ROADMAP.md queue 1, item 5)")
+def _tier(state) -> str:
+    """The state's tier: "flat", "packed" or "runs"."""
+    for cls, name in ((FlatBwt, "flat"), (PackedFlatBwt, "packed"),
+                      (RunBwt, "runs")):
+        if isinstance(state, cls):
+            return name
+    raise TypeError(f"not an index state: {type(state).__name__}")
 
 
 def _state_K(state, K):
     """The block size, derived from the state's shapes; an explicit K only
     overrides it (and must then match the index's).  The packed tier's
-    tables are per 128-symbol row."""
-    if _is_packed(state):
+    tables are per 128-symbol row, and the run tier has no K."""
+    if _tier(state) != "flat":
         return 128
     if K is not None:
         return K
@@ -52,7 +51,11 @@ def _as64(state, x):
 
 
 def _base_rank(state, pos, K):
-    if _is_packed(state):
+    tier = _tier(state)
+    if tier == "runs":
+        return rank_global_runs(state.rend, state.rsym, state.bstart,
+                                state.bocc, pos).long()
+    if tier == "packed":
         return rank_global_packed(state.pbwt, state.blkA, state.blkB, pos)
     return rank_global(state.bwt, state.blk_prefix, pos, K).long()
 

@@ -28,6 +28,15 @@ def prefix_rows(cnts, dtype):
     return torch.cat([zero, t], dim=1).t().contiguous()
 
 
+def scan_rows(op, x):
+    """op (torch.cumsum / cummax / cummin) down the rows of an (M, S)
+    table, run along the last dimension of its transpose: PyTorch's CUDA
+    scan along the first dimension of a narrow table walks each column in
+    one thread."""
+    y = op(x.t().contiguous(), dim=1)
+    return (y if isinstance(y, torch.Tensor) else y.values).t()
+
+
 def build_block_tables(bwt, K: int, dtype=torch.int64):
     """Per-symbol prefix counts at every K-block boundary.
 

@@ -120,7 +120,7 @@ def write_fmr(bwt, out, block_len=512, max_nodes=64):
 
 def partition_runs_from_state(bwt):
     """Split the engine's BWT into six per-partition run lists, from its
-    run arrays split at the partition offsets (either tier)."""
+    run arrays split at the partition offsets (any tier)."""
     sym, ln = partition_run_arrays(bwt)
     return [list(zip(s.tolist(), l.tolist())) for s, l in zip(sym, ln)]
 
@@ -193,17 +193,19 @@ def read_fmr_runs(path_or_file):
             f.close()
 
 
-def read_fmr_state(path, K=128, device=None, defer_r=None, pack4="auto"):
+def read_fmr_state(path, K=128, device=None, **engine_options):
     """Restore an FMR file into a live engine (mr_restore equivalent) on
-    ``device`` (None: the card).  Returns (TorchBwt, so).  The bytes do not
-    depend on K; K = 128 keeps the packed tier reachable when the restored
-    index grows past its threshold."""
+    ``device`` (None: the card), with TorchBwt's other options (defer_r,
+    pack4, runs, ...).  Returns (TorchBwt, so).  The index is restored on
+    the flat tier; a run-tier engine converts it at its first batch.  The
+    bytes do not depend on K; K = 128 keeps the packed tier reachable when
+    the restored index grows past its threshold."""
     from ..engine import TorchBwt
     from ..index.flat import state_from_partition_runs
     from ..utils import log
 
     parts, so = read_fmr_runs(path)
-    eng = TorchBwt(so=so, K=K, device=device, defer_r=defer_r, pack4=pack4)
+    eng = TorchBwt(so=so, K=K, device=device, **engine_options)
     eng.state = state_from_partition_runs(parts, K, device=eng.device)
     eng._n = sum(l for p in parts for _, l in p)
     eng._n_strings = sum(l for p in parts for c, l in p if c == 0)

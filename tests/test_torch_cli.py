@@ -110,16 +110,27 @@ def test_batch_size_parsing():
         assert tcli.parse_batch_size(arg) == jcli.parse_batch_size(arg)
 
 
+RUNS_OFF = {"runs": None, "runs_margin": 2.0, "runs_rcap": 0}
+
+
 @pytest.mark.parametrize("env,want", [
-    ({}, {"defer_r": None, "pack4": "auto"}),
+    ({}, {"defer_r": None, "pack4": "auto", **RUNS_OFF}),
     ({"ROPEBWT2_TPU_DEFER_R": "8", "ROPEBWT2_TPU_PACK4": "0"},
-     {"defer_r": 8, "pack4": 0}),
+     {"defer_r": 8, "pack4": 0, **RUNS_OFF}),
     ({"ROPEBWT2_TPU_DEFER_R": "-1", "ROPEBWT2_TPU_PACK4": "1000"},
-     {"defer_r": None, "pack4": 1000}),
+     {"defer_r": None, "pack4": 1000, **RUNS_OFF}),
+    ({"ROPEBWT2_TPU_RUNS": "1", "ROPEBWT2_TPU_RUNS_MARGIN": "0.35",
+      "ROPEBWT2_TPU_RUNS_RCAP": "65536"},
+     {"defer_r": None, "pack4": "auto", "runs": 1, "runs_margin": 0.35,
+      "runs_rcap": 65536}),
+    ({"ROPEBWT2_TPU_RUNS": "0"},
+     {"defer_r": None, "pack4": "auto", **RUNS_OFF}),
 ])
 def test_engine_options_from_the_environment(env, want, monkeypatch, rng,
                                              tmp_path):
-    for k in ("ROPEBWT2_TPU_DEFER_R", "ROPEBWT2_TPU_PACK4"):
+    for k in ("ROPEBWT2_TPU_DEFER_R", "ROPEBWT2_TPU_PACK4",
+              "ROPEBWT2_TPU_RUNS", "ROPEBWT2_TPU_RUNS_MARGIN",
+              "ROPEBWT2_TPU_RUNS_RCAP"):
         monkeypatch.delenv(k, raising=False)
     for k, v in env.items():
         monkeypatch.setenv(k, v)

@@ -518,3 +518,45 @@ def test_cli_builds_on_the_card_by_default(dev, tmp_path, capsys):
         outs.append(out.read_bytes())
     assert outs[0] == outs[1]
     assert "[M::main] device cuda" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("defer_r", [0, 4])
+def test_run_tier_build_on_the_card_matches_the_cpu(dev, defer_r):
+    """TorchBwt(runs=1) on the card: the same state, field by field, BWT,
+    run arrays and queries as on the CPU; deferred, kernel B launches."""
+    rng = np.random.default_rng(80 + defer_r)
+    batches = [[rng.integers(1, 6, int(k)).astype(np.int8)
+                for k in rng.integers(1, 60, 300)] for _ in range(2)]
+    batches.append(rng.integers(1, 5, (200, 101)).astype(np.int8))
+    engines = [TorchBwt(so=1, defer_r=defer_r, device=d, runs=1)
+               for d in (dev, "cpu")]
+    pendings = pending_cuda.LAUNCHES
+    for eng in engines:
+        for b in batches:
+            eng.insert_multi(b)
+    assert (pending_cuda.LAUNCHES > pendings) == (defer_r > 0)
+    card, cpu = (e.state for e in engines)
+    assert type(card).__name__ == "RunBwt"
+    for f in ("rsym", "rend", "bstart", "bocc", "nslot", "overflow", "n",
+              "psize", "pcounts"):
+        assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f)), f
+    assert np.array_equal(engines[0].bwt_array(), engines[1].bwt_array())
+    offs = np.concatenate([[0], np.cumsum(cpu.psize.numpy())])
+    for got, want in zip(engines[0].run_arrays(bounds=offs),
+                         engines[1].run_arrays(bounds=offs)):
+        assert np.array_equal(got, want)
+    pos = np.sort(rng.integers(0, engines[0].n + 1, 3000))
+    assert torch.equal(query.rank1a(card, pos).cpu(),
+                       query.rank1a(cpu, pos))
+
+
+def test_run_tier_overflow_raises_on_the_card(dev):
+    """A batch that outgrows a fixed slot capacity raises after it, and
+    the corrupt index exports nothing."""
+    rng = np.random.default_rng(82)
+    eng = TorchBwt(so=1, device=dev, runs=1, runs_margin=0.35,
+                   runs_rcap=16384)
+    with pytest.raises(RuntimeError, match="outgrew"):
+        eng.insert_multi(rng.integers(1, 5, (600, 40)).astype(np.int8))
+    with pytest.raises(RuntimeError, match="corrupt"):
+        eng.bwt_array()

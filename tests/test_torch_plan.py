@@ -172,12 +172,15 @@ def test_port_imports_and_builds_without_jax():
         "          'preprocess'):\n"
         "    __import__('ropebwt2_tpu_torch.io.' + m)\n"
         "from ropebwt2_tpu_torch.engine import TorchBwt\n"
-        "for pack4 in (0, 1):\n"
-        "    e = TorchBwt(so=1, defer_r=2, device='cpu', pack4=pack4)\n"
+        "import ropebwt2_tpu_torch.index.runs\n"
+        "for pack4, runs in ((0, None), (1, None), (0, 1)):\n"
+        "    e = TorchBwt(so=1, defer_r=2, device='cpu', pack4=pack4,\n"
+        "                 runs=runs)\n"
         "    e.insert_multi([np.array([1, 2, 3, 4], np.int8)] * 3)\n"
         "    assert e.counts().tolist() == [3, 3, 3, 3, 3, 0]\n"
         "    assert q.rank1a(e.state, [15]).tolist() == [[3, 3, 3, 3, 3, 0]]\n"
         "    assert sum(l for _, l in e.runs()) == 15\n"
+        "    assert (type(e.state).__name__ == 'RunBwt') == bool(runs)\n"
         "assert not any(m.split('.')[0] in ('jax', 'ropebwt2_tpu')\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
     )

@@ -136,12 +136,21 @@ def test_extend_forward_symmetry(rng):
 
 
 def test_run_tier_waits_for_its_port():
-    """A state of no ported tier raises, naming the ROADMAP item."""
+    """The run tier is ported: its index answers rank as the flat one
+    does.  A state of no tier raises TypeError."""
+    rng = np.random.default_rng(5)
+    reads = random_reads(rng, 40, lo=3, hi=30)
+    runs = TorchBwt(so=1, device="cpu", runs=1)
+    runs.insert_multi(reads)
+    flat = _port(reads, so=1)
+    pos = np.arange(0, flat.n + 1)
+    assert torch.equal(tq.rank1a(runs.state, pos), tq.rank1a(flat.state, pos))
+
     class RunBwt:
         n = torch.zeros((), dtype=torch.int64)
         pcounts = torch.zeros((6, 6), dtype=torch.int64)
 
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
+    with pytest.raises(TypeError, match="not an index state"):
         tq.rank1a(RunBwt(), [0])
 
 
