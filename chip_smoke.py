@@ -13,7 +13,9 @@ Phases, each reported on its own line:
    2^20 insertions), on a dense case, and at phase 9's largest calls (the
    last round of its one-batch run, cap 213,909,504 with 2^21 insertions;
    of its -m 64m run the last round and the last flush, cap 2^28 with
-   638,194 and 1,095,420 active lanes): the wrapper's buffer and K-block
+   638,194 and 1,095,420 active lanes), and at one rank's flush of the
+   sharded engine at 4 ranks (phase 13; cap 2^26 + 2^21, 2^21 lanes, 2^19
+   active, n 2^26): the wrapper's buffer and K-block
    tables, and the kernel alone (run_kernel: buffer and 128-symbol rank
    prefix) with int32 and int64 rows; the kernel alone beside the whole
    wrapper (eager and on the device) and the earlier kernel's and
@@ -37,7 +39,9 @@ Phases, each reported on its own line:
    lane (p_after = 0), and at the capacity path's shape (pcap 2^24, 2^20
    rows, half full), and at phase 9's fullest call (pcap 2^21, 2^18 rows,
    1,277,990 pending), and at the shapes phases 10-12 give it (half full:
-   pcap 2^21 with 2^17 rows, 2^22 with 2^19, 2^16 and 2^18 with 2^12);
+   pcap 2^21 with 2^17 rows, 2^22 with 2^19, 2^16 and 2^18 with 2^12), and
+   at one rank's of the sharded engine at 4 ranks (phase 13: pcap 2^21,
+   2^17 lanes of which 2^15 routed to the rank, a quarter full);
    then pending_add chained over 4 rounds, a reset and 4 more, against the
    plain version round by round;
 4. small builds (4096 reads x 101 in 2 batches, so 0/1/2, defer_r 0/8):
@@ -104,12 +108,28 @@ Phases, each reported on its own line:
    reads, rounds per second.
    Phases 10-12 must launch kernel B, at the largest (pcap, lanes) of
    phase 3's cases for them.
+13. the multi-device engine (ropebwt2_tpu_torch/parallel/): (a) kernel A
+   on one rank's stitched buffer at the per-rank shapes of a world of 4 on
+   phase 5's plan (lcap 2^26 from ShardedTorchBwt._plan's formula, a tail
+   of 2^17 rows with 2^15 routed insertions and s_lo 0, 5 and 98,304; the
+   flush's shift, a tail of 2^23 and s_lo 2^20), the window and its
+   rebased int32 K-rows against merge_blocks, and (R, pcap) from
+   _choose_defer at d = 4 equal to phase 3's sharded case; (b)
+   ShardedTorchBwt at a world of one over NCCL on phase 5's sustained
+   reads (8 prefill batches, the last profiled, and 2 timed; R and pcap
+   chosen at lcap 2^28): its BWT equals phase 5's flat BWT by md5; with
+   defer_r = 0 on one batch into an empty index it equals TorchBwt's; the
+   process group is destroyed after; (c) ``ROPEBWT2_TPU_SHARDED=1 python
+   -m ropebwt2_tpu_torch.cli -s -d`` on phase 9's FASTQ in a fresh
+   process: its FMD equals phase 9's run 1 byte for byte, and it logs
+   "sharded engine over 1 devices".
 
 Launches are counted per path: each path (the batch and the sustained
 regime of phase 5, flat and packed, the capacity build of phase 6, the
 probe suite of phase 7, the CLI's run in this process of phase 9, the run
 tier's timed batches of phase 10, the deep-coverage build of phase 11,
-each long-read build of phase 12) runs
+each long-read build of phase 12, the sharded engine's timed batches and
+its batch merged every round in phase 13) runs
 with every count set to 0 just before it and is read just after. A count
 is of eager launches: the probes time short kernels in CUDA graphs,
 whose capture launches nothing and whose replays do not call the
@@ -167,6 +187,10 @@ MERGE_CASES = (  # name, cap, insertion lanes, live n, dense, active lanes
     # a flush of phase 12's long reads on the flat tier (cap 2^24, pcap
     # 2^16 lanes of which 16 rounds of 4096 reads at most)
     ("long flush", 1 << 24, 1 << 16, 14_000_000, False, None),
+    # the sharded flush's merge of one rank at d = 4 (phase 13): its window
+    # and pcap of scratch, pcap lanes, 16 rounds of M / 4 routed rows active
+    ("sharded flush", (1 << 26) + (1 << 21), 1 << 21, 1 << 26, False,
+     16 * (1 << 17) // 4),
 )
 PEND_SHAPE = (1 << 20, 1 << 17, CAP_FLUSH)  # pcap, rows per round, max vp
 # kernel B in the CLI's 4th batch at its fullest: pcap 2^21, 2^18 lanes,
@@ -231,6 +255,23 @@ LONG_READS, LONG_LEN, LONG_SEED = 4096, (2000, 5000), 12
 LONG_N = 14_400_000  # about its symbols
 PEND_LONG = (1 << 16, 1 << 12, LONG_N, 0.5)
 PEND_LONG_RUNS = (1 << 18, 1 << 12, LONG_N, 0.5)
+# phase 13: the sharded engine.  13a holds kernels A and B at the per-rank
+# shapes of a world of SHARD_D ranks on phase 5's sustained plan (the shapes
+# are computed in one process; no world of 4 is started): lcap from
+# ShardedTorchBwt._plan's formula (2^26), a round's tail of M_BENCH global
+# rows with SHARD_ROUTED insertions routed to the rank and s_lo phantom
+# marks, and the flush's shift (a tail of d * pcap = 2^23, no insertions,
+# s_lo = the pending rows of two ranks below); the flush's merge is phase
+# 2's "sharded flush" row (lcap + pcap, pcap lanes, 16 rounds of
+# SHARD_ROUTED active) and kernel B phase 3's PEND_SHARDED case (R 16, pcap
+# 2^21 from _choose_defer at d = 4; d * ml = 2^17 lanes, SHARD_ROUTED of them
+# routed to the rank; the pending set a quarter full, as at a flush)
+SHARD_D, SHARD_LCAP, SHARD_PCAP = 4, 1 << 26, 1 << 21
+SHARD_ROUTED = M_BENCH // SHARD_D
+SHARD_SLO = (0, 5, 3 * M_BENCH // 4)
+SHARD_SHIFT = (SHARD_D * SHARD_PCAP, 2 * 16 * SHARD_ROUTED)  # tail, s_lo
+PEND_SHARDED = (SHARD_PCAP, M_BENCH, SHARD_LCAP + SHARD_PCAP, 0.25,
+                SHARD_ROUTED)
 # kernel ms of the kernels that the present designs replaced, from this
 # script (the merge wrapper's: probe F, whole wrapper on the device) on an
 # NVIDIA H100 80GB HBM3 at 700 W, printed beside the new times: B by
@@ -644,6 +685,7 @@ def phase_pending(torch):
     # the shapes the run-tier and long-read phases (10-12) give kernel B
     cases += [(*c, None) for c in (PEND_RUNS, PEND_DEEP, PEND_LONG,
                                    PEND_LONG_RUNS)]
+    cases.append(PEND_SHARDED)  # one rank of the sharded engine (phase 13)
     cases.append((*PEND_SHAPE, 0.0, 0))  # no active lane: p_after = 0
     out = {}
     for pcap, m, nmax, frac, a in cases:
@@ -937,7 +979,8 @@ def phase_main(torch, ReadGen):
     p_cap = eng.state.cap
     kept["packed"] = to_host(eng)
     kept["reads"] = sustained_batches[0][:QUERY_CHECKS]
-    kept["md5"] = flat_md5  # phase 10 holds the run tier to it
+    kept["md5"] = flat_md5  # phases 10 and 13 hold their builds to it
+    kept["sustained_rate"] = syms / min(walls) / 1e6
     del eng
     torch.cuda.empty_cache()
     say(f"[5] sustained regime, packed tier (pack4=1): cap {p_cap} R "
@@ -1827,6 +1870,207 @@ def phase_long(torch, smi):
     return out
 
 
+# --------------------------------------------------------------- phase 13
+
+def stitched_case(torch, gen, lcap, m, a, s_lo):
+    """Kernel A on one rank's stitched buffer (parallel/sharded.py::
+    stitched_args): a window of lcap random symbols, a tail of m, ``a``
+    insertions routed to the rank among M_BENCH lanes (a if a else 0) and
+    s_lo phantom marks; the kernel (run_kernel) against its plain version
+    (merge_blocks) on the window and on its rebased K-rows (int32 rows),
+    tolerance 0.  Returns max_abs_err, the kernel's time alone (a CUDA
+    graph), the whole stitched_merge's (eager), the plain version's and
+    the bound."""
+    from ropebwt2_tpu_torch.index import merge_cuda
+    from ropebwt2_tpu_torch.index.flat import PAD_TAIL
+    from ropebwt2_tpu_torch.parallel.sharded import (
+        stitched_args, stitched_merge, stitched_window,
+    )
+    from ropebwt2_tpu_torch.probes import _timing
+
+    dev = DEV
+    bwt = torch.randint(0, 6, (lcap + PAD_TAIL,), generator=gen, device=dev,
+                        dtype=torch.int8)
+    tail = torch.randint(0, 6, (m,), generator=gen, device=dev,
+                         dtype=torch.int8)
+    lanes = M_BENCH if a else 0
+    rv = torch.zeros(lanes, dtype=torch.bool, device=dev)
+    rv[torch.randperm(lanes, generator=gen, device=dev)[:a]] = True
+    ldest = torch.full((lanes,), lcap, device=dev)
+    ldest[rv] = torch.sort(torch.randperm(lcap, generator=gen, device=dev)[
+        :a]).values
+    rsym = torch.randint(0, 6, (lanes,), generator=gen, device=dev)
+    s_lo_t = torch.tensor(s_lo, device=dev)
+    args = stitched_args(bwt, tail, ldest, rsym, rv, s_lo_t, lcap)
+    got = stitched_window(*merge_cuda.run_kernel(*args), m, lcap, 128)
+    want = stitched_window(*merge_cuda.merge_blocks(*args), m, lcap, 128)
+    torch.cuda.synchronize()
+    err = max(max_abs_diff(got[0], want[0]), max_abs_diff(got[1], want[1]))
+    if got[1].dtype != torch.int32:
+        raise AssertionError(f"stitched rows are {got[1].dtype}")
+    del got, want
+    alloc = args[0].shape[0]
+    nb = -(-alloc // merge_cuda.BS)
+    res = {"err": err,
+           "ms": _timing.graph_ms(lambda: merge_cuda.run_kernel(*args)),
+           "wrapper_ms": time_ms(lambda: stitched_merge(
+               bwt, tail, ldest, rsym, rv, s_lo_t, lcap, 128)),
+           "plain_ms": time_ms(lambda: merge_cuda.merge_blocks(*args)),
+           "bound_ms": _timing.bound_ms(_timing.merge_bytes(
+               m + lcap, s_lo + a, alloc, tile=merge_cuda.tile_blocks(nb)))}
+    del bwt, tail, args
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_sharded(torch, ReadGen, kept, smi):
+    """The sharded engine (parallel/): 13a, kernels A and B at the per-rank
+    shapes of a world of 4; 13b, ShardedTorchBwt at a world of one over
+    NCCL on phase 5's sustained reads (its BWT == phase 5's flat BWT by
+    md5), and with defer_r = 0 on one batch into an empty index (== the
+    flat engine's); 13c, the CLI under ROPEBWT2_TPU_SHARDED=1 on phase 9's
+    FASTQ in a fresh process (its FMD == phase 9's run 1)."""
+    import torch.distributed as dist
+    from ropebwt2_tpu_torch.engine import TorchBwt
+    from ropebwt2_tpu_torch.engine.bcr import _pad_pow2, _round_up
+    from ropebwt2_tpu_torch.parallel.mesh import make_mesh
+    from ropebwt2_tpu_torch.parallel.sharded import ShardedTorchBwt
+
+    syms = M_BENCH * (L_BENCH + 1)
+    total = (PREFILL + SUSTAIN + 1) * syms
+    # 13a: the per-rank shapes at d = SHARD_D, as ShardedTorchBwt plans them
+    lcap = _round_up(_pad_pow2(-(-total // SHARD_D), lo=4096), 128)
+    planner = ShardedTorchBwt.__new__(ShardedTorchBwt)
+    planner._defer_cfg, planner._lcap, planner.d = -1, lcap, SHARD_D
+    shape_ok = (lcap, planner._choose_defer(M_BENCH)) == \
+        (SHARD_LCAP, (16, SHARD_PCAP))
+    say(f"[13a] d = {SHARD_D} on phase 5's plan ({total} symbols): lcap "
+        f"{lcap}, (R, pcap) {planner._choose_defer(M_BENCH)}; == the cases' "
+        f"{shape_ok}")
+    gen = torch.Generator(device=DEV).manual_seed(13)
+    out = {}
+    for name, m, a, s_lo in (
+            [(f"stitched s_lo {x}", M_BENCH, SHARD_ROUTED, x)
+             for x in SHARD_SLO]
+            + [("sharded shift", *SHARD_SHIFT[:1], 0, SHARD_SHIFT[1])]):
+        r = stitched_case(torch, gen, SHARD_LCAP, m, a, s_lo)
+        say(f"[13a] kernel A, {name}: lcap {SHARD_LCAP} tail {m} routed "
+            f"insertions {a} s_lo {s_lo}: max_abs_err {r['err']} (window "
+            f"and rebased int32 K-rows against merge_blocks, tolerance 0); "
+            f"kernel alone {r['ms']:.4f} ms, stitched_merge "
+            f"{r['wrapper_ms']:.4f} ms eager, plain {r['plain_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms, share "
+            f"{r['bound_ms'] / r['ms']:.3f}; {smi}")
+        if r["err"] != 0:
+            raise AssertionError(f"the stitched merge disagrees ({name})")
+        out[name] = r
+    if not shape_ok:
+        raise AssertionError("phase 13a's shapes are not the engine's")
+
+    # 13b: a world of one over NCCL on phase 5's sustained reads
+    gen = ReadGen(seed=0, nreads=M_BENCH * (1 + PREFILL + SUSTAIN),
+                  L=L_BENCH, mode="coverage", cov=47.0, err=0.01)
+    first = gen.batch(M_BENCH).view(np.int8)
+    batches = [gen.batch(M_BENCH).view(np.int8)
+               for _ in range(PREFILL + SUSTAIN)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_mesh(device=None if DEV == "cuda" else DEV)
+    try:
+        backend = dist.get_backend()
+        eng = ShardedTorchBwt(so=1, K=128, mesh=mesh)
+        eng._plan(total)
+        defer_r, pcap = eng._choose_defer(M_BENCH)
+        t0 = time.perf_counter()
+        for bt in batches[:PREFILL - 1]:
+            eng.insert_multi(bt)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        wall, rows = profile(lambda: eng.insert_multi(batches[PREFILL - 1]))
+        report_profile("sharded (prefill batch 8)", wall, rows, tag="[13b]")
+        walls = []
+        reset_launches()  # the sharded path: the timed batches
+        for bt in batches[PREFILL:]:
+            t0 = time.perf_counter()
+            eng.insert_multi(bt)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        launches = read_launches()
+        cnt = eng.counts()
+        counts_ok = int(cnt[0]) == M_BENCH * (PREFILL + SUSTAIN) and \
+            int(cnt.sum()) == syms * (PREFILL + SUSTAIN)
+        md5 = text_md5(eng.bwt_array())
+        lcap1 = eng._lcap
+        peak = torch.cuda.max_memory_allocated()
+        del eng
+        torch.cuda.empty_cache()
+        one = ShardedTorchBwt(so=1, K=128, mesh=mesh, defer_r=0)
+        torch.cuda.synchronize()
+        reset_launches()  # the sharded path merged every round: one batch
+        t0 = time.perf_counter()
+        one.insert_multi(first)
+        torch.cuda.synchronize()
+        one_wall = time.perf_counter() - t0
+        one_launches = read_launches()
+        got = one.bwt_array()
+        del one
+    finally:
+        mesh.close()
+    ref = TorchBwt(so=1, K=128, device=DEV, defer_r=0)
+    ref.insert_multi(first)
+    one_ok = bool(np.array_equal(got, ref.bwt_array()))
+    del ref, got
+    torch.cuda.empty_cache()
+    md5_ok = md5 == kept["md5"]
+    rate = syms / min(walls) / 1e6
+    say(f"[13b] ShardedTorchBwt over a world of {mesh.d} ({backend}): lcap "
+        f"{lcap1} R {defer_r} pcap {pcap}, prefill {PREFILL - 1} batches "
+        f"{prefill_s:.3f} s (+1 profiled), timed walls "
+        f"{[round(w, 4) for w in walls]} s, {rate:.3f} Msym/s (best) against "
+        f"phase 5's flat {kept['sustained_rate']:.3f} Msym/s; launches per "
+        f"batch: kernel A {launches['merge'] / SUSTAIN}, kernel B "
+        f"{launches['pending_merge'] / SUSTAIN}; peak device memory {peak} "
+        f"B ({peak / 2**30:.3f} GiB); {smi}")
+    say(f"[13b] sharded BWT == phase 5's flat BWT (md5 of the text "
+        f"encoding): {md5_ok} ({md5}); counts {counts_ok}")
+    say(f"[13b] defer_r = 0, one batch of {syms} symbols into an empty "
+        f"index: {one_wall:.3f} s, {syms / one_wall / 1e6:.3f} Msym/s, "
+        f"launches {launched(one_launches)}; == TorchBwt's BWT {one_ok}; "
+        f"process group destroyed {not dist.is_initialized()}")
+    if not (md5_ok and counts_ok and one_ok) or dist.is_initialized():
+        raise AssertionError("phase 13b failed its checks")
+    if launches["merge"] == 0 or launches["pending_merge"] == 0 or \
+            one_launches["merge"] == 0:
+        raise AssertionError(f"a kernel never launched: {launches}, "
+                             f"{one_launches}")
+
+    # 13c: the CLI's switch, in a fresh process, on phase 9's FASTQ
+    smoke = os.path.join(HERE, "smoke_out")
+    fq, want = os.path.join(smoke, "reads.fq.gz"), \
+        os.path.join(smoke, "cli.fmd")
+    fmd = os.path.join(smoke, "cli_sharded.fmd")
+    cmd = [sys.executable, "-m", "ropebwt2_tpu_torch.cli", "-s", "-d", "-o",
+           fmd, fq]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=HERE, stdin=subprocess.DEVNULL,
+                       capture_output=True, text=True, timeout=600,
+                       env=dict(os.environ, ROPEBWT2_TPU_SHARDED="1"))
+    wall = time.perf_counter() - t0
+    for line in r.stderr.splitlines():
+        say(f"[13c]   child: {line}")
+    switch = "sharded engine over 1 devices" in r.stderr
+    same = r.returncode == 0 and \
+        open(fmd, "rb").read() == open(want, "rb").read()
+    say(f"[13c] ROPEBWT2_TPU_SHARDED=1 {' '.join(cmd[1:])}: rc "
+        f"{r.returncode}, wall {wall:.3f} s in a fresh process; FMD == "
+        f"phase 9's run 1 {same}; 'sharded engine over 1 devices' "
+        f"{switch}; {smi}")
+    if not (same and switch):
+        raise AssertionError("phase 13c failed its checks")
+    return {"sharded": (launches, SUSTAIN),
+            "sharded_batch": (one_launches, 1)}, out
+
+
 def kernel_table(merge_res, packed_res, pend_res, paths, probes):
     """The kernels line: A, B, C with their launches per batch on every
     path, their time, plain time and bound at the shape of each path, and
@@ -1857,7 +2101,10 @@ def kernel_table(merge_res, packed_res, pend_res, paths, probes):
         "merge": {"batch": merge_res["batch"],
                   "sustained": merge_res["flush"],
                   "cli": merge_res["cli 64m round"],
-                  "long": merge_res["long flush"]},
+                  "long": merge_res["long flush"],
+                  "sharded": merge_res["sharded flush"],
+                  "sharded_batch":
+                      merge_res[f"stitched s_lo {SHARD_SLO[-1]}"]},
         "pending_merge": {"sustained": pend_res[(PEND_SHAPE[0], 0.3)],
                           "sustained_packed": pend_res[(PEND_SHAPE[0], 0.3)],
                           "capacity": pend_res[(PEND_CAPACITY[0],
@@ -1865,6 +2112,7 @@ def kernel_table(merge_res, packed_res, pend_res, paths, probes):
                           "cli": pend_res[(PEND_CLI[0], PEND_CLI[3])],
                           **{path: pend_res[(c[0], c[3])] for path, c in (
                               ("runs", PEND_RUNS), ("runs_deep", PEND_DEEP),
+                              ("sharded", PEND_RUNS),
                               ("long", PEND_LONG),
                               ("long_runs", PEND_LONG_RUNS))}},
         "merge_packed": {"sustained_packed": packed_res["sustained"],
@@ -1981,6 +2229,10 @@ def main():
     paths.update(timed("10", phase_runs, torch, ReadGen, kept["md5"], smi))
     paths.update(timed("11", phase_deep, torch, ReadGen, smi))
     paths.update(timed("12", phase_long, torch, smi))
+    shard_paths, stitched = timed("13", phase_sharded, torch, ReadGen, kept,
+                                  smi)
+    paths.update(shard_paths)
+    merge_res.update(stitched)
 
     kernels = kernel_table(merge_res, packed_res, pend_res, paths, probes)
     say(json.dumps({"kernels": kernels,

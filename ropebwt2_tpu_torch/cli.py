@@ -12,8 +12,11 @@ ROPEBWT2_TPU_PACK4 ("auto", 0, or a threshold in symbols for the 4-bit
 packed tier), ROPEBWT2_TPU_RUNS (0, 1, or a threshold in symbols for the
 run-length tier), ROPEBWT2_TPU_RUNS_MARGIN (run-tier slots planned per
 inserted symbol, 2.0), ROPEBWT2_TPU_RUNS_RCAP (a fixed run-tier slot
-capacity, 0 for none) and ROPEBWT2_TPU_NATIVE=0 (the Python reader and
-writers instead of the native host runtime).
+capacity, 0 for none), ROPEBWT2_TPU_NATIVE=0 (the Python reader and
+writers instead of the native host runtime) and ROPEBWT2_TPU_SHARDED=1 (the
+multi-device engine, parallel/sharded.py, over the process group: a world
+of one, or every rank of ``torchrun --nproc_per_node N -m
+ropebwt2_tpu_torch.cli ...``, one card a rank; only rank 0 writes).
 """
 
 import getopt
@@ -86,7 +89,15 @@ def engine_options():
 
 
 def main(argv=None, device=None) -> int:
-    argv = sys.argv[1:] if argv is None else argv
+    cleanup = []  # what the run started and must end (the process group)
+    try:
+        return _main(sys.argv[1:] if argv is None else argv, device, cleanup)
+    finally:
+        for fn in cleanup:
+            fn()
+
+
+def _main(argv, device, cleanup) -> int:
     try:
         opts, args = getopt.getopt(argv, "BPNLTFRCtrbdsl:n:m:v:o:i:q:M:x:")
     except getopt.GetoptError as e:
@@ -154,16 +165,22 @@ def main(argv=None, device=None) -> int:
     if cut_n and m == 0:
         log.error("main", "option '-x' cannot be used with '-m0'")
         return 1
-    if os.environ.get("ROPEBWT2_TPU_SHARDED", "0") == "1":
-        log.error("main", "ROPEBWT2_TPU_SHARDED=1: the multi-device engine "
-                  "is not ported yet (ROADMAP.md queue 1, item 6)")
-        return 1
+    mesh = None
     try:
-        device = resolve_device(device, "TorchBwt")
+        if os.environ.get("ROPEBWT2_TPU_SHARDED", "0") == "1":
+            from .parallel.mesh import make_mesh
+
+            mesh = make_mesh(device=device)
+            cleanup.append(mesh.close)
+            device = mesh.device
+        else:
+            device = resolve_device(device, "TorchBwt")
     except RuntimeError as e:
         log.error("main", "%s", e)
         return 1
     log.message("main", "device %s", _device_name(device))
+    if mesh is not None:
+        log.message("main", "sharded engine over %d devices", mesh.d)
 
     log.liftrlimit()
     eng_opts = engine_options()
@@ -179,6 +196,14 @@ def main(argv=None, device=None) -> int:
         except (EOFError, ValueError) as e:
             log.error("main", "fail to read FMR file '%s': %s", restore_path, e)
             return 1
+        if mesh is not None:  # re-shard the restored flat index
+            from .parallel.sharded import ShardedTorchBwt
+
+            bwt = ShardedTorchBwt.from_single(bwt, mesh=mesh)
+    elif mesh is not None:
+        from .parallel.sharded import ShardedTorchBwt
+
+        bwt = ShardedTorchBwt(so=so, mesh=mesh, defer_r=eng_opts["defer_r"])
     else:
         bwt = TorchBwt(so=so, device=device, **eng_opts)
 
@@ -268,7 +293,14 @@ def main(argv=None, device=None) -> int:
         *[int(c) for c in cnt],
     )
 
-    write_output(bwt, out_path, out_mode, block_len, max_nodes)
+    if mesh is not None and mesh.s != 0:
+        # only rank 0 writes: the others send it their shards
+        if out_mode == "text":
+            bwt.bwt_array()
+        else:
+            bwt.run_arrays()
+    else:
+        write_output(bwt, out_path, out_mode, block_len, max_nodes)
     return 0
 
 

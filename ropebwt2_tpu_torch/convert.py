@@ -1,14 +1,15 @@
 """Carry an index across from the JAX package: its state, as numpy arrays,
 becomes the port's state on a chosen device.  The layouts match (the flat
 buffer keeps its PAD_TAIL slack, the packed one its vertical plane pairs
-and two-level tables, the run tier its slots, block tables and sentinel),
-so the conversion copies the arrays and widens what the port keeps in
+and two-level tables, the run tier its slots, block tables and sentinel,
+a sharded index its windows and global-valued tables, one row a rank), so
+the conversion copies the arrays and widens what the port keeps in
 int64."""
 
 import numpy as np
 import torch
 
-from .index.flat import PAD_TAIL, FlatBwt, table_dtype
+from .index.flat import PAD, PAD_TAIL, FlatBwt, table_dtype
 from .index.packed import LANE, PPAD_ROWS, PackedFlatBwt
 from .index.pending import INF, PendingIndex
 from .index.runs import KR, RunBwt
@@ -87,6 +88,28 @@ def pending_from_numpy(vp, psym, blk_prefix, p, device) -> PendingIndex:
         psym=_tensor(psym, np.int8, device),
         blk_prefix=_tensor(blk_prefix, np.int32, device),
         p=_tensor(p, np.int64, device),
+    )
+
+
+def sharded_from_numpy(bwt, blk_prefix, n, psize, pcounts, rank,
+                       device):
+    """Rank ``rank``'s ShardedBwt from the fields of the JAX package's
+    ShardedBwt: its row of bwt int8[D, lcap] (PAD_TAIL of PAD appended)
+    and of blk_prefix int[D, lcap // K + 1, 6] (global values), and the
+    replicated n, psize int[6] and pcounts int[6, 6]."""
+    from .parallel.sharded import ShardedBwt
+
+    bwt = np.asarray(bwt, dtype=np.int8)
+    d, lcap = bwt.shape
+    window = np.full(lcap + PAD_TAIL, PAD, dtype=np.int8)
+    window[:lcap] = bwt[rank]
+    return ShardedBwt(
+        bwt=_tensor(window, np.int8, device),
+        blk_prefix=_tensor(np.asarray(blk_prefix)[rank], np.int64,
+                           device).to(table_dtype(lcap * d)),
+        n=_tensor(n, np.int64, device),
+        psize=_tensor(psize, np.int64, device),
+        pcounts=_tensor(pcounts, np.int64, device),
     )
 
 

@@ -50,7 +50,7 @@ from ..index.pending import (
     rank_virtual_base,
     reset_pending,
 )
-from ..index.rank import rank_global, scan_rows
+from ..index.rank import rank_global
 from ..index.runs import (
     RCAP_ALIGN,
     RUN_LEN_MAX,
@@ -65,8 +65,10 @@ from ..index.runs import (
     runs_from_arrays,
     slot_lengths,
 )
+from ..parallel.comm import LocalComm
 
 I64 = torch.int64
+LOCAL = LocalComm()
 PLAN_ALIGN = 1 << 17  # upfront-plan capacity rounding (the JAX package's)
 PACK_ALIGN = 1 << 20  # capacity rounding of the packed tier
 PACK4_AUTO = 1 << 31  # pack4="auto": pack past 2^31 symbols (the JAX rule)
@@ -120,21 +122,27 @@ def _take(t, idx):
 
 
 def plan_round(psize, pcounts, reads: ReadStates, buf, d: int,
-               is_first: bool, rank_fn, *, so):
+               is_first: bool, rank_fn, *, so, comm=None):
     """Steps 1-4 and 6 of one round.  ``rank_fn(gpos) -> (M, 6)`` gives
     6-symbol ranks at global positions (the base table, or base + pending).
 
+    ``comm`` carries the few global steps (the bucket sort, the symbol
+    fetch, the scans, the boundary rolls, the sums): None is one device
+    (parallel/comm.py::LocalComm); a ShardComm runs the same plan on this
+    rank's block of the read states (parallel/sharded.py).
+
     Returns (new_reads, gX, sym, stream, active, ins_bucket, n_ins); gX and
     stream are meaningful on active rows only."""
+    if comm is None:
+        comm = LOCAL
     dev = reads.l.device
-    M = reads.l.shape[0]
-    arange_m = torch.arange(M, device=dev)
+    M = reads.l.shape[0]  # this rank's rows
+    arange_m = comm.iota(M, dev)  # the global row index
 
     # ---- 1. stable sort by bucket (mrope.c:303-310) ----
     pk0 = reads.pk
     key = torch.where(pk0 < 0, 0, pk0 & 7)
-    perm = torch.argsort(key, stable=True)
-    l, u, pk = reads.l[perm], reads.u[perm], pk0[perm]
+    l, u, pk = comm.sort(key, (reads.l, reads.u, pk0))
     dead = pk < 0
     c = pk & 7  # 7 on padding rows
 
@@ -145,16 +153,16 @@ def plan_round(psize, pcounts, reads: ReadStates, buf, d: int,
 
     # ---- next symbol of each read (reads are stored reversed) ----
     off = (pk >> 3) * 8
-    sym = buf[(off + d).clamp(0, buf.shape[0] - 1)].long()
+    sym = comm.fetch_syms(buf, off + d)
     sym = torch.where(active, sym, 0)
 
     # ---- 2. groups: runs of equal (inert, bucket, u) ----
     tkey = c * 2 + inert.long()
-    bucket_head = (arange_m == 0) | (tkey != torch.roll(tkey, 1))
-    head = bucket_head | (u != torch.roll(u, 1))
+    bucket_head = (arange_m == 0) | (tkey != comm.roll1(tkey))
+    head = bucket_head | (u != comm.roll1(u))
     hh = torch.stack([torch.where(head, arange_m, 0),
                       torch.where(bucket_head, arange_m, 0)], dim=1)
-    hh = scan_rows(torch.cummax, hh)
+    hh = comm.scan(torch.cummax, hh)
     headidx, bktheadidx = hh[:, 0], hh[:, 1]
 
     # stored intervals are in progressive coordinates; E = reads in earlier
@@ -189,13 +197,13 @@ def plan_round(psize, pcounts, reads: ReadStates, buf, d: int,
     oh = (sym[:, None] == torch.arange(NSYM, device=dev)[None, :]) \
         & active[:, None]
     oh = oh.long()
-    csum = scan_rows(torch.cumsum, oh)  # inclusive
+    csum = comm.scan(torch.cumsum, oh)  # inclusive
     excl = csum - oh
 
     Wc = _emitted_before(csum, order)
     We = _emitted_before(excl, order)
-    is_tail = torch.cat([head[1:], head.new_ones(1)])
-    fwd = scan_rows(torch.cummax, torch.cat([
+    is_tail = comm.shift_up1(head, True)
+    fwd = comm.scan(torch.cummax, torch.cat([
         torch.where(head[:, None], excl, 0),
         torch.where(bucket_head[:, None], excl, 0),
         torch.where(head[:, None], We, 0),
@@ -203,9 +211,8 @@ def plan_round(psize, pcounts, reads: ReadStates, buf, d: int,
     head_excl, bkt_excl = fwd[:, :NSYM], fwd[:, NSYM:2 * NSYM]
     We_head = fwd[:, 2 * NSYM:]
     big = torch.iinfo(I64).max
-    Wc_tail = scan_rows(
-        torch.cummin, torch.where(is_tail[:, None], Wc, big).flip(0)
-    ).flip(0)
+    Wc_tail = comm.scan(torch.cummin, torch.where(is_tail[:, None], Wc, big),
+                        reverse=True)
     before_in_group = _take(Wc_tail - We_head, sym)
     P_sym = _take(head_excl - bkt_excl, sym)  # by earlier groups of bucket
 
@@ -213,12 +220,12 @@ def plan_round(psize, pcounts, reads: ReadStates, buf, d: int,
     # zeros)
     ins_bucket = torch.zeros((8, NSYM), dtype=I64, device=dev)
     ins_bucket.index_add_(0, c, oh)
-    ins_bucket = ins_bucket[:NSYM]
+    ins_bucket = comm.psum_array(ins_bucket[:NSYM])
     ac_excl = _excl_rows(pcounts + ins_bucket)
 
     # ---- global tie rank (stream index) of each insertion ----
     rank_in_run = _take(excl - head_excl, sym)
-    stream = headidx - inert.sum() + before_in_group + rank_in_run
+    stream = headidx - comm.sum_scalar(inert) + before_in_group + rank_in_run
 
     # ---- interval update (+ fused cross-bucket rebase) ----
     l_new = _take(TL, sym) + P_sym + _take(ac_excl[c], sym)
@@ -227,7 +234,7 @@ def plan_round(psize, pcounts, reads: ReadStates, buf, d: int,
     u = torch.where(active, u_new, u)
     pk = torch.where(active, (pk & ~7) | sym, pk)
 
-    n_ins = active.sum()
+    n_ins = comm.sum_scalar(active)
     return (ReadStates(l=l, u=u, pk=pk), gX, sym, stream, active,
             ins_bucket, n_ins)
 
@@ -331,6 +338,43 @@ def _pad_pow2(x, lo=16):
     while n < x:
         n *= 2
     return n
+
+
+def cut_points(bounds, n):
+    """The distinct offsets of ``bounds`` strictly inside (0, n)."""
+    cuts = np.unique(bounds)
+    return cuts[(cuts > 0) & (cuts < n)]
+
+
+def chunk_runs(chunks, cuts, device):
+    """(sym int8, len int64) tensors on ``device``: the maximal runs of a
+    sequence given as (lo, hi, int8 symbols [lo, hi) on the device) chunks
+    in order, split at the offsets in ``cuts``.  A run goes on across chunk
+    boundaries; only run heads are kept of each chunk."""
+    syms, lens, cont = [], [], []
+    for lo, hi, x in chunks:
+        head = torch.ones(hi - lo, dtype=torch.bool, device=device)
+        head[1:] = x[1:] != x[:-1]
+        local = cuts[(cuts > lo) & (cuts < hi)] - lo
+        if local.size:
+            head[torch.from_numpy(local).to(device)] = True
+        h = torch.nonzero(head)[:, 0]
+        s = x[h]
+        # the first run goes on from the previous chunk's last one
+        c = torch.zeros(s.numel(), dtype=torch.bool, device=device)
+        if syms and lo not in cuts:
+            c[0] = s[0] == syms[-1][-1]
+        syms.append(s)
+        lens.append(torch.diff(h, append=h.new_full((1,), hi - lo)))
+        cont.append(c)
+    if not syms:
+        return (torch.zeros(0, dtype=torch.int8, device=device),
+                torch.zeros(0, dtype=I64, device=device))
+    s, ln, c = (torch.cat(a) for a in (syms, lens, cont))
+    first = torch.nonzero(~c)[:, 0]
+    ends = torch.cumsum(ln, 0)[torch.cat([first[1:] - 1,
+                                          first.new_full((1,), -1)])]
+    return s[first], torch.diff(ends, prepend=ends.new_zeros(1))
 
 
 class TorchBwt:
@@ -674,37 +718,13 @@ class TorchBwt:
         """(sym int8, len int64) tensors on the index's device: the BWT's
         maximal runs, split at the offsets in ``bounds``."""
         n = self._n
-        cuts = np.unique(bounds)
-        cuts = cuts[(cuts > 0) & (cuts < n)]
+        cuts = cut_points(bounds, n)
         dev = self.state.n.device
         if isinstance(self.state, RunBwt):
             return self._slot_runs(torch.from_numpy(cuts).to(dev))
-        syms, lens, cont = [], [], []
-        for lo in range(0, n, chunk):
-            hi = min(n, lo + chunk)
-            x = self._symbols(lo, hi)
-            head = torch.ones(hi - lo, dtype=torch.bool, device=dev)
-            head[1:] = x[1:] != x[:-1]
-            local = cuts[(cuts > lo) & (cuts < hi)] - lo
-            if local.size:
-                head[torch.from_numpy(local).to(dev)] = True
-            h = torch.nonzero(head)[:, 0]
-            s = x[h]
-            # the first run goes on from the previous chunk's last one
-            c = torch.zeros(s.numel(), dtype=torch.bool, device=dev)
-            if syms and lo not in cuts:
-                c[0] = s[0] == syms[-1][-1]
-            syms.append(s)
-            lens.append(torch.diff(h, append=h.new_full((1,), hi - lo)))
-            cont.append(c)
-        if not syms:
-            return (torch.zeros(0, dtype=torch.int8, device=dev),
-                    torch.zeros(0, dtype=I64, device=dev))
-        s, ln, c = (torch.cat(a) for a in (syms, lens, cont))
-        first = torch.nonzero(~c)[:, 0]
-        ends = torch.cumsum(ln, 0)[torch.cat([first[1:] - 1,
-                                              first.new_full((1,), -1)])]
-        return s[first], torch.diff(ends, prepend=ends.new_zeros(1))
+        spans = ((lo, min(n, lo + chunk)) for lo in range(0, n, chunk))
+        chunks = ((lo, hi, self._symbols(lo, hi)) for lo, hi in spans)
+        return chunk_runs(chunks, cuts, dev)
 
     def _slot_runs(self, cuts):
         """_run_tensors of a run-tier index: its live slots with equal

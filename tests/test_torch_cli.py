@@ -140,11 +140,20 @@ def test_engine_options_from_the_environment(env, want, monkeypatch, rng,
 
 
 def test_sharded_is_refused(monkeypatch, tmp_path, capsys):
+    """ROPEBWT2_TPU_SHARDED=1 builds on the sharded engine (a world of one
+    on the CPU here; tests/test_torch_sharded_cli.py holds its bytes to the
+    JAX CLI's); it is refused only where there is no device to run on: no
+    device given and no card."""
     monkeypatch.setenv("ROPEBWT2_TPU_SHARDED", "1")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     p = tmp_path / "in.txt"
     p.write_bytes(b"ACGT\n")
-    assert tcli.main(["-L", str(p)], device="cpu") == 1
-    assert "queue 1, item 6" in capsys.readouterr().err
+    assert tcli.main(["-L", str(p)]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+    out = tmp_path / "out.txt"
+    assert tcli.main(["-L", "-o", str(out), str(p)], device="cpu") == 0
+    assert "sharded engine over 1 devices" in capsys.readouterr().err
+    assert out.read_bytes() == b"TT$$AACCGG\n"
 
 
 def _env():

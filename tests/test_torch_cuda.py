@@ -3,10 +3,10 @@ card, and the port's build on the card against its build on the CPU.
 
 These tests need an NVIDIA GPU and skip without one.  Later ones hold
 the probe suite's kernels (ropebwt2_tpu_torch/probes) against their plain
-versions, and the queries, the run export and the CLI on the card against
-the CPU.  They import neither
-JAX nor the test helpers in conftest.py, so they also run where JAX is not
-installed:
+versions, and the queries, the run export, the CLI and the sharded
+engine (a world of one over NCCL) on the card against the CPU.  They
+import neither JAX nor the test helpers in conftest.py, so they also run
+where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
@@ -560,3 +560,63 @@ def test_run_tier_overflow_raises_on_the_card(dev):
         eng.insert_multi(rng.integers(1, 5, (600, 40)).astype(np.int8))
     with pytest.raises(RuntimeError, match="corrupt"):
         eng.bwt_array()
+
+
+@pytest.mark.parametrize("s_lo", [0, 7, 3000])
+def test_stitched_merge_kernel_matches_plain(dev, s_lo):
+    """Kernel A on one rank's stitched buffer (parallel/sharded.py): the
+    window and its rebased table rows against merge_blocks on the same
+    arguments, a phantom drift of s_lo and 2^12 routed insertions."""
+    from ropebwt2_tpu_torch.parallel.sharded import (
+        stitched_args, stitched_window,
+    )
+
+    rng = np.random.default_rng(90 + s_lo)
+    lcap, m, a = 1 << 20, 1 << 14, 1 << 12
+    rv = np.zeros(m, bool)
+    rv[rng.choice(m, a, replace=False)] = True
+    ldest = np.full(m, lcap)
+    ldest[rv] = np.sort(rng.choice(lcap, a, replace=False))
+    bwt, tail, ldest, rsym, rv = (torch.from_numpy(x).to(dev) for x in (
+        rng.integers(0, 6, lcap + PAD_TAIL).astype(np.int8),
+        rng.integers(0, 6, m).astype(np.int8), ldest,
+        rng.integers(0, 6, m), rv))
+    args = stitched_args(bwt, tail, ldest, rsym, rv,
+                         torch.tensor(s_lo, device=dev), lcap)
+    launches = merge_cuda.LAUNCHES
+    got = stitched_window(*merge_cuda.run_kernel(*args), m, lcap, 256)
+    torch.cuda.synchronize()
+    assert merge_cuda.LAUNCHES == launches + 1
+    want = stitched_window(*merge_cuda.merge_blocks(*args), m, lcap, 256)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("defer_r", [0, 4])
+def test_sharded_world_of_one_on_the_card_matches_the_cpu(dev, defer_r):
+    """ShardedTorchBwt with no device: a world of one over NCCL on the
+    card, which builds the BWT TorchBwt builds on the CPU; kernel A
+    launches, and kernel B when deferred; the group ends with the mesh."""
+    import torch.distributed as dist
+    from ropebwt2_tpu_torch.parallel.sharded import ShardedTorchBwt
+
+    rng = np.random.default_rng(84 + defer_r)
+    batches = [[rng.integers(1, 6, int(k)).astype(np.int8)
+                for k in rng.integers(1, 60, 300)] for _ in range(2)]
+    ref = TorchBwt(so=1, defer_r=defer_r, device="cpu")
+    eng = ShardedTorchBwt(so=1, defer_r=defer_r)
+    try:
+        assert dist.get_backend() == "nccl" and eng.device.type == "cuda"
+        merges, pendings = merge_cuda.LAUNCHES, pending_cuda.LAUNCHES
+        for b in batches:
+            ref.insert_multi(b)
+            eng.insert_multi(b)
+        assert merge_cuda.LAUNCHES > merges
+        assert (pending_cuda.LAUNCHES > pendings) == (defer_r > 0)
+        assert np.array_equal(eng.bwt_array(), ref.bwt_array())
+        assert np.array_equal(eng.counts(), ref.counts())
+        for got, want in zip(eng.run_arrays(), ref.run_arrays()):
+            assert np.array_equal(got, want)
+    finally:
+        eng.mesh.close()
+    assert not dist.is_initialized()

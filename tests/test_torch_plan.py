@@ -173,6 +173,17 @@ def test_port_imports_and_builds_without_jax():
         "    __import__('ropebwt2_tpu_torch.io.' + m)\n"
         "from ropebwt2_tpu_torch.engine import TorchBwt\n"
         "import ropebwt2_tpu_torch.index.runs\n"
+        "import ropebwt2_tpu_torch.parallel.mesh\n"
+        "import ropebwt2_tpu_torch.parallel.comm\n"
+        "import ropebwt2_tpu_torch.oracle as o\n"
+        "import ropebwt2_tpu_torch.bruteforce as bf\n"
+        "from ropebwt2_tpu_torch.parallel.sharded import ShardedTorchBwt\n"
+        "sh = ShardedTorchBwt(so=1, defer_r=2, device='cpu')\n"
+        "sh.insert_multi([np.array([1, 2, 3, 4], np.int8)] * 3)\n"
+        "assert sh.counts().tolist() == [3, 3, 3, 3, 3, 0]\n"
+        "assert sh.bwt_array().tolist() == bf.bwt_bruteforce(\n"
+        "    [[1, 2, 3, 4]] * 3, o.SO_RLO)\n"
+        "sh.mesh.close()\n"
         "for pack4, runs in ((0, None), (1, None), (0, 1)):\n"
         "    e = TorchBwt(so=1, defer_r=2, device='cpu', pack4=pack4,\n"
         "                 runs=runs)\n"
