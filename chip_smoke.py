@@ -25,8 +25,9 @@ Phases, each reported on its own line:
    block, on a mixed case (CTAs with no insertion, whose old runs start at
    symbol 0 and on packed-row boundaries; CTAs that are all insertions;
    sparse insertions after them, old runs across 17 packed rows), at cap
-   2^28 + 2^20 with 2^24 insertions (17 anchor chunks) and at the packed
-   sustained regime's flush (cap 147,849,216, 2^20);
+   2^28 + 2^20 with 2^24 insertions (17 anchor chunks), at the packed
+   sustained regime's flush (cap 147,849,216, 2^20) and at phase 14
+   scale_run's flush (cap 428,867,584, 4 x 2^20, all active);
    then at the capacity phase's flush shape (cap 2,246,049,792, 2^24
    lanes of which 6 * 2^20 active, n past 2^31), where the plain version
    would need ~72 GB,
@@ -41,7 +42,8 @@ Phases, each reported on its own line:
    1,277,990 pending), and at the shapes phases 10-12 give it (half full:
    pcap 2^21 with 2^17 rows, 2^22 with 2^19, 2^16 and 2^18 with 2^12), and
    at one rank's of the sharded engine at 4 ranks (phase 13: pcap 2^21,
-   2^17 lanes of which 2^15 routed to the rank, a quarter full);
+   2^17 lanes of which 2^15 routed to the rank, a quarter full), and at
+   phase 14 scale_run's (pcap 2^22, 2^20 rows, half full);
    then pending_add chained over 4 rounds, a reset and 4 more, against the
    plain version round by round;
 4. small builds (4096 reads x 101 in 2 batches, so 0/1/2, defer_r 0/8):
@@ -50,14 +52,17 @@ Phases, each reported on its own line:
    on the packed tier (pack4=1) equal the card's flat builds and spell the
    reads back too;
 5. the main path at the benchmark shape (2^17 coverage reads x 101, RLO,
-   K = 128): one batch into an empty index, then a fresh index planned
-   for 11 batches with 8 prefill and 2 timed batches; kernels A and B
-   must launch.  The sustained regime runs again on the packed tier
+   K = 128), through the port's bench stage functions
+   (ropebwt2_tpu_torch/bench.py): one batch into an empty index, then a
+   fresh index planned for 11 batches with 8 prefill and 2 timed batches;
+   kernels A and B must launch.  The sustained regime runs again on the packed tier
    (pack4=1), and its BWT must equal the flat run's (by md5);
-6. the capacity tier at the size of scripts/scale_run.py's runs:
-   coverage reads (seed 0, 47x, 1% errors) x 101, RLO, batches of 2^20
-   reads, pack4="auto", planned upfront for 21 batches (2,246,049,792
-   symbols, n past 2^31): packed from the first batch, R = 16, pcap 2^24.
+6. the capacity tier at the size of scripts/scale_run.py's runs, built
+   through the port's scripts/scale_run.py (TorchBwt.plan, batches,
+   insert_batch, text_md5): coverage reads (seed 0, 47x, 1% errors) x 101,
+   RLO, batches of 2^20 reads, pack4="auto", planned upfront for 21
+   batches (2,246,049,792 symbols, n past 2^31): packed from the first
+   batch, R = 16, pcap 2^24.
    counts() after every batch; packed rank equal to the int8 rank with
    int64 tables at 2^20+ positions (every anchor boundary +-1, positions
    past 2^31); an LF walk from 4096 sentinel rows spells reads of the
@@ -72,8 +77,9 @@ Phases, each reported on its own line:
    shapes; a feature that does not compile is printed as FAIL and is no
    failure, one that compiles and disagrees is.
 
-8. the FM-index queries of bench.py:225-321 through the port's
-   engine/query.py over the flat and the packed index that phase 5's
+8. the FM-index queries of bench.py:225-321 through the port's bench
+   query stages (its inputs from default_rng(1) in the JAX bench's order,
+   over engine/query.py) on the flat and the packed index that phase 5's
    sustained regime leaves (10 batches of 2^17 x 101): rank (2^18 sorted
    positions, 32 chained steps), extend (2^18 bi-intervals, 32 chained
    backward steps) and backward_search (2^16 patterns of 31 symbols), in
@@ -98,12 +104,14 @@ Phases, each reported on its own line:
    symbols a slot, resident B/sym, peak memory;
 11. the run tier at deep coverage, scripts/configs/scale4gdeep_runs.sh's
    configuration (150x, 0.3% errors, seed 777, batches of 2^19 reads, RLO,
-   runs_margin 0.35, R = 8) cut to DEEP_BATCHES batches: Msym/s per batch,
+   runs_margin 0.35, R = 8) cut to DEEP_BATCHES batches, built through the
+   port's scale_run functions: Msym/s per batch,
    symbols a slot, resident B/sym, overflow 0, counts, md5, and an LF walk
    from 4096 sentinel rows with the run tier's rank that spells reads of
    the input;
 12. long reads: 4096 uniform reads of 2,000-5,000 bp in one batch (5,001
-   rounds) on the flat tier (defer_r=16) and on the run tier: equal md5s,
+   rounds), built through the port's longread_run.build, on the flat tier
+   (defer_r=16) and on the run tier: equal md5s,
    LF walks from every sentinel row of the run-tier index spell the
    reads, rounds per second.
    Phases 10-12 must launch kernel B, at the largest (pcap, lanes) of
@@ -123,13 +131,25 @@ Phases, each reported on its own line:
    -m ropebwt2_tpu_torch.cli -s -d`` on phase 9's FASTQ in a fresh
    process: its FMD equals phase 9's run 1 byte for byte, and it logs
    "sharded engine over 1 devices".
+14. the entry points as a user runs them, each in a fresh process:
+   ``python -m ropebwt2_tpu_torch.bench`` with BENCH_RUNS=2 (its last line
+   parses, has no ``degraded``, names this card and its power limit, and
+   its launches show kernel A on the batch path and A and B on the
+   sustained one), and ``python -m ropebwt2_tpu_torch.scripts.scale_run``
+   at 4 batches of 2^20 reads on the packed tier with SCALE_MD5=1 (its
+   index hashed, its FM spot check passed, kernels B and C launched at
+   the capacity and R that phases 2b and 3 hold them at), and ``python -m
+   ropebwt2_tpu_torch.scripts.scale_shards`` (the sharded engine on the
+   card, worlds of the ranks this host's cards hold, each rank 0's BWT
+   equal to TorchBwt's).
 
 Launches are counted per path: each path (the batch and the sustained
 regime of phase 5, flat and packed, the capacity build of phase 6, the
 probe suite of phase 7, the CLI's run in this process of phase 9, the run
 tier's timed batches of phase 10, the deep-coverage build of phase 11,
 each long-read build of phase 12, the sharded engine's timed batches and
-its batch merged every round in phase 13) runs
+its batch merged every round in phase 13; phase 14's children count their
+own from 0 and report them) runs
 with every count set to 0 just before it and is read just after. A count
 is of eager launches: the probes time short kernels in CUDA graphs,
 whose capture launches nothing and whose replays do not call the
@@ -210,6 +230,13 @@ QUERY_RANK, QUERY_SEARCH, QUERY_CHECKS = (1 << 18, 32), (1 << 16, 31), 4096
 CLI_READS, CLI_WALKS, CLI_RESTORE = 1 << 20, 1000, 1 << 14
 CLI_M = "64m"  # -m of the second run, which gives several batches
 CAP_PACKED = 147_849_216  # the packed sustained regime's capacity (phase 5)
+# phase 14's scale_run (4 batches of 2^20 reads x 101 on the packed tier,
+# planned for 427,819,008 symbols and the phantom read: capacity 409 x
+# 2^20): R 4 and pcap 2^22 from _choose_defer, so kernel B merges 2^20 rows
+# a round into a pending set half full at its mean, and kernel C flushes 4
+# x 2^20 pending rows, all active (uniform reads keep every lane live)
+CAP_SCALE14 = 428_867_584
+PEND_SCALE14 = (1 << 22, 1 << 20, CAP_SCALE14, 0.5)
 # name, cap, insertion lanes, live n, dense, reference; the sustained case
 # is a flush of the packed sustained regime (R = 8), the flush case
 # leaves 10 of 16 rounds' lanes inactive, as the last flush of a phase 6
@@ -226,6 +253,8 @@ PACKED_CASES = (
      "plain"),
     ("flush", CAP_SCALE, 1 << 24, CAP_SCALE - (1 << 24) - 12345, False,
      "kernel A"),
+    ("scale_run flush", CAP_SCALE14, 4 << 20,
+     CAP_SCALE14 - (4 << 20) - 12345, False, "plain"),
 )
 FLUSH_ACTIVE = 6 << 20  # active lanes of the packed flush case
 # kernel B at the capacity path's shape: pcap 2^24 (R = 16), 2^20 rows
@@ -266,6 +295,10 @@ PEND_LONG_RUNS = (1 << 18, 1 << 12, LONG_N, 0.5)
 # SHARD_ROUTED active) and kernel B phase 3's PEND_SHARDED case (R 16, pcap
 # 2^21 from _choose_defer at d = 4; d * ml = 2^17 lanes, SHARD_ROUTED of them
 # routed to the rank; the pending set a quarter full, as at a flush)
+# phase 14: the entry points in fresh processes: the bench with
+# BENCH_RUNS=2 (its default sizes otherwise), and scale_run at 4 batches of
+# 2^20 uniform reads x 101 on the packed tier (427,819,008 symbols)
+BENCH14_RUNS, SCALE14_BATCHES = 2, 4
 SHARD_D, SHARD_LCAP, SHARD_PCAP = 4, 1 << 26, 1 << 21
 SHARD_ROUTED = M_BENCH // SHARD_D
 SHARD_SLO = (0, 5, 3 * M_BENCH // 4)
@@ -377,20 +410,6 @@ def read_launches():
 def launched(counts):
     """The kernels of ``counts`` that launched, for printing."""
     return {k: v for k, v in counts.items() if v}
-
-
-def text_md5(bwt):
-    """md5 of a BWT in the reference's plain-text encoding ("$ACGTN"
-    characters and one trailing newline), as scripts/scale_run.py hashes
-    it."""
-    import hashlib
-
-    h = hashlib.md5()
-    lut = np.frombuffer(b"$ACGTN", dtype=np.uint8)
-    for lo in range(0, bwt.shape[0], 1 << 26):
-        h.update(lut[bwt[lo: lo + (1 << 26)]].tobytes())
-    h.update(b"\n")
-    return h.hexdigest()
 
 
 # ---------------------------------------------------------------- phase 2
@@ -686,6 +705,7 @@ def phase_pending(torch):
     cases += [(*c, None) for c in (PEND_RUNS, PEND_DEEP, PEND_LONG,
                                    PEND_LONG_RUNS)]
     cases.append(PEND_SHARDED)  # one rank of the sharded engine (phase 13)
+    cases.append((*PEND_SCALE14, None))  # phase 14's scale_run
     cases.append((*PEND_SHAPE, 0.0, 0))  # no active lane: p_after = 0
     out = {}
     for pcap, m, nmax, frac, a in cases:
@@ -751,7 +771,7 @@ def phase_pending(torch):
         if err != 0:
             raise AssertionError(f"pending kernel disagrees ({label})")
         if not idle:
-            out[(pcap, frac)] = {
+            out[(pcap, m, frac)] = {
                 "err": err, "wrapper_ms": ms, "plain_ms": plain_ms, "ms": kt,
                 "ms_of": "kernel", "profiled_ms": profiled,
                 "new_rows_ms": rows_ms, "bound_ms": bound_ms,
@@ -767,7 +787,7 @@ def phase_pending(torch):
         f"of {-(-pcap // 4096)}")
     if err != 0:
         raise AssertionError("chained pending rounds disagree")
-    out[(pcap, 0.3)]["err"] = max(out[(pcap, 0.3)]["err"], err)
+    out[(pcap, m, 0.3)]["err"] = max(out[(pcap, m, 0.3)]["err"], err)
     return out
 
 
@@ -879,67 +899,55 @@ def by_kind(rows):
     return sorted(tot.items(), key=lambda kv: -kv[1])
 
 
-def phase_main(torch, ReadGen):
-    from ropebwt2_tpu_torch.engine import TorchBwt
+def phase_main(torch):
+    """bench.py's two regimes through the port's bench stage functions
+    (ropebwt2_tpu_torch/bench.py): the batch regime twice, the last run's
+    launches read; the sustained regime, its last prefill batch profiled
+    and its timed batches' launches read; the sustained regime again on
+    the packed tier, held to the flat BWT by md5."""
+    from ropebwt2_tpu_torch import bench
+    from ropebwt2_tpu_torch.scripts.common import timed_insert
+    from ropebwt2_tpu_torch.scripts.scale_run import text_md5
 
-    gen = ReadGen(seed=0, nreads=M_BENCH * (1 + PREFILL + SUSTAIN),
-                  L=L_BENCH, mode="coverage", cov=47.0, err=0.01)
+    cfg = bench.Config(M=M_BENCH, L=L_BENCH, so=1, K=128, prefill_x=PREFILL,
+                       sustain_runs=SUSTAIN)
+    gen = bench.reads_gen(cfg)
     reads = gen.batch(M_BENCH).view(np.int8)
-    syms = M_BENCH * (L_BENCH + 1)
+    syms = cfg.syms
     sustained_batches = [gen.batch(M_BENCH).view(np.int8)
                          for _ in range(PREFILL + SUSTAIN)]
-
-    def check(eng, nbatches):
-        cnt = eng.counts()
-        if int(cnt[0]) != M_BENCH * nbatches or \
-                int(cnt.sum()) != syms * nbatches:
-            raise AssertionError(f"self-check failed: counts {cnt}")
+    done = PREFILL + SUSTAIN
 
     torch.cuda.reset_peak_memory_stats()
     batch_walls = []
     for _ in range(2):  # the first run includes PyTorch's lazy set-up
-        eng = TorchBwt(so=1, K=128, device=DEV)
-        torch.cuda.synchronize()
         reset_launches()  # the batch path: the last run's launches
-        t0 = time.perf_counter()
-        eng.insert_multi(reads)
-        torch.cuda.synchronize()
-        batch_walls.append(time.perf_counter() - t0)
-        check(eng, 1)
-        del eng
+        batch_walls.append(bench.batch_run(cfg, reads, DEV))
     batch_launches = read_launches()
     wall, rows = profile(
-        lambda: TorchBwt(so=1, K=128, device=DEV).insert_multi(reads))
+        lambda: bench.new_engine(cfg, DEV).insert_multi(reads))
     report_profile("batch", wall, rows)
 
-    eng = TorchBwt(so=1, K=128, device=DEV)
-    eng._plan((PREFILL + SUSTAIN + 1) * syms)
+    eng = bench.sustained_engine(cfg, DEV)
     defer_r, pcap = eng._choose_defer(M_BENCH)
-    t0 = time.perf_counter()
-    for bt in sustained_batches[:PREFILL - 1]:
-        eng.insert_multi(bt)
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
+    prefill_s = bench.prefill(eng, sustained_batches[:PREFILL - 1])
     # the last prefill batch runs under the profiler: where the time goes
     wall, rows = profile(lambda: eng.insert_multi(
         sustained_batches[PREFILL - 1]))
     report_profile("sustained (prefill batch 8)", wall, rows)
-    walls = []
     reset_launches()  # the sustained path: the timed batches
-    for bt in sustained_batches[PREFILL:]:
-        t0 = time.perf_counter()
-        eng.insert_multi(bt)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    check(eng, PREFILL + SUSTAIN)
+    walls = [timed_insert(eng, bt)[0]
+             for bt in sustained_batches[PREFILL:]]
     launches = read_launches()
+    bench.check_counts(eng.counts(), M_BENCH * done, syms * done)
     peak = torch.cuda.max_memory_allocated()
 
-    say(f"[5] batch regime: {syms} symbols into an empty index, walls "
-        f"{[round(w, 4) for w in batch_walls]} s, "
+    say(f"[5] batch regime (bench.batch_run): {syms} symbols into an empty "
+        f"index, walls {[round(w, 4) for w in batch_walls]} s, "
         f"{syms / min(batch_walls) / 1e6:.3f} Msym/s (best), launches "
         f"{launched(batch_launches)}")
-    say(f"[5] sustained regime: cap {eng.state.cap} R {defer_r} pcap {pcap}, "
+    say(f"[5] sustained regime (bench.sustained_engine, prefill, "
+        f"timed_insert): cap {eng.state.cap} R {defer_r} pcap {pcap}, "
         f"prefill {PREFILL - 1} batches {prefill_s:.3f} s (+1 profiled), "
         f"timed walls "
         f"{[round(w, 4) for w in walls]} s, "
@@ -952,35 +960,27 @@ def phase_main(torch, ReadGen):
         raise AssertionError(f"a kernel never launched: {launches}")
 
     # the sustained regime again on the packed tier: the same BWT
-    flat_md5 = text_md5(eng.bwt_array())
+    flat_md5 = text_md5(eng)
     kept = {"flat": to_host(eng)}  # phase 8 queries the two indexes
     del eng
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    eng = TorchBwt(so=1, K=128, device=DEV, pack4=1)
-    eng._plan((PREFILL + SUSTAIN + 1) * syms)
+    eng = bench.sustained_engine(cfg, DEV, pack4=1)
     p_defer, p_pcap = eng._choose_defer(M_BENCH)
-    t0 = time.perf_counter()
-    for bt in sustained_batches[:PREFILL]:
-        eng.insert_multi(bt)
-    torch.cuda.synchronize()
-    p_prefill_s = time.perf_counter() - t0
-    p_walls = []
+    p_prefill_s = bench.prefill(eng, sustained_batches[:PREFILL])
     reset_launches()  # the packed sustained path: the timed batches
-    for bt in sustained_batches[PREFILL:]:
-        t0 = time.perf_counter()
-        eng.insert_multi(bt)
-        torch.cuda.synchronize()
-        p_walls.append(time.perf_counter() - t0)
-    check(eng, PREFILL + SUSTAIN)
+    p_walls = [timed_insert(eng, bt)[0]
+               for bt in sustained_batches[PREFILL:]]
     p_launches = read_launches()
+    bench.check_counts(eng.counts(), M_BENCH * done, syms * done)
     p_peak = torch.cuda.max_memory_allocated()
-    packed_md5 = text_md5(eng.bwt_array())
+    packed_md5 = text_md5(eng)
     p_cap = eng.state.cap
     kept["packed"] = to_host(eng)
     kept["reads"] = sustained_batches[0][:QUERY_CHECKS]
     kept["md5"] = flat_md5  # phases 10 and 13 hold their builds to it
     kept["sustained_rate"] = syms / min(walls) / 1e6
+    kept["batch_rate"] = syms / min(batch_walls) / 1e6
     del eng
     torch.cuda.empty_cache()
     say(f"[5] sustained regime, packed tier (pack4=1): cap {p_cap} R "
@@ -1043,11 +1043,16 @@ def lf_walk(torch, rank, counts, rows, steps):
 
 
 def phase_capacity(torch, ReadGen):
+    """scripts/scale_run.py's build through the port's scale_run
+    (TorchBwt.plan, batches drawn on a host thread, insert_batch with its
+    counts after every batch, text_md5 a chunk at a time), at the cut size
+    below, with the packed tier's checks."""
     from ropebwt2_tpu_torch.engine import TorchBwt
     from ropebwt2_tpu_torch.index.packed import (
         ACHUNK, PackedFlatBwt, rank_global_packed, unpack_bwt,
     )
     from ropebwt2_tpu_torch.index.rank import build_block_tables, rank_global
+    from ropebwt2_tpu_torch.scripts import scale_run
 
     mb, nbatch, L = SCALE_MBATCH, SCALE_BATCHES, L_BENCH
     nreads = mb * nbatch
@@ -1058,15 +1063,10 @@ def phase_capacity(torch, ReadGen):
     gen = ReadGen(seed=0, nreads=nreads, L=L, mode="coverage", cov=47.0,
                   err=0.01)
 
-    def draw():  # the next batch and the hashes of its reads as walked
-        t0 = time.perf_counter()
-        bt = gen.batch(mb).view(np.int8)
-        return bt, read_hashes(bt[:, ::-1]), time.perf_counter() - t0
-
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     eng = TorchBwt(so=1, K=128, device=DEV)  # pack4="auto"
-    eng._plan(total)
+    eng.plan(total)
     defer_r, pcap = eng._choose_defer(mb)
     say(f"[6] plan: {type(eng.state).__name__} cap {eng.state.cap} R "
         f"{defer_r} pcap {pcap}")
@@ -1075,34 +1075,20 @@ def phase_capacity(torch, ReadGen):
     hashes, walls, gen_s = [], [], 0.0
     reset_launches()
     t_all = time.perf_counter()
-    # a host thread draws the next batch while the card builds this one
-    with ThreadPoolExecutor(max_workers=1) as pool:
-        nxt = pool.submit(draw)
-        for i in range(nbatch):
-            bt, h, g = nxt.result()
-            gen_s += g
-            hashes.append(h)
-            if i + 1 < nbatch:
-                nxt = pool.submit(draw)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            if i == nbatch - 1:  # the last batch: where the time goes
-                wall, rows = profile(lambda: eng.insert_multi(bt))
-                report_profile(f"capacity batch {i + 1}", wall, rows,
-                               tag="[6]")
-            else:
-                eng.insert_multi(bt)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            cnt = eng.counts()
-            done = (i + 1) * mb
-            if int(cnt[0]) != done or int(cnt.sum()) != done * (L + 1):
-                raise AssertionError(f"self-check failed after batch "
-                                     f"{i + 1}: counts {cnt}")
-            walls.append(wall)
-            say(f"[6] batch {i + 1}: {wall:.4f} s"
-                f"{' (profiled)' if i == nbatch - 1 else ''}, n {eng.n}, "
-                f"{mb * (L + 1) / wall / 1e6:.3f} Msym/s")
+    # scale_run.batches draws the next batch on a host thread meanwhile
+    for i, (bt, g) in enumerate(scale_run.batches(gen, nreads, mb)):
+        gen_s += g
+        hashes.append(read_hashes(bt[:, ::-1]))  # the reads as walked
+        if i == nbatch - 1:  # the last batch: where the time goes
+            wall, rows = profile(
+                lambda: scale_run.insert_batch(eng, bt, i * mb, L))
+            report_profile(f"capacity batch {i + 1}", wall, rows, tag="[6]")
+        else:
+            wall, _ = scale_run.insert_batch(eng, bt, i * mb, L)
+        walls.append(wall)
+        say(f"[6] batch {i + 1}: {wall:.4f} s"
+            f"{' (profiled)' if i == nbatch - 1 else ''}, n {eng.n}, "
+            f"{mb * (L + 1) / wall / 1e6:.3f} Msym/s")
     build_s = time.perf_counter() - t_all
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
@@ -1160,9 +1146,9 @@ def phase_capacity(torch, ReadGen):
         f"{SCALE_WALKS} spell a read of the input")
 
     tm = time.perf_counter()
-    md5 = text_md5(eng.bwt_array())
-    say(f"[6] bwt md5 {md5} (scale_run.py's text encoding, no phantom "
-        f"read; {time.perf_counter() - tm:.3f} s incl. transfer)")
+    md5 = scale_run.text_md5(eng)
+    say(f"[6] bwt md5 {md5} (scale_run.text_md5, chunk by chunk; no "
+        f"phantom read; {time.perf_counter() - tm:.3f} s incl. transfer)")
     del eng, st
     torch.cuda.empty_cache()
     if n <= 1 << 31 or rank_err != 0 or not shaped or found != SCALE_WALKS:
@@ -1232,23 +1218,6 @@ def phase_probes(torch):
 
 # ---------------------------------------------------------------- phase 8
 
-def rate(fn, work, reps=3):
-    """(best wall s, work / s) of fn() over ``reps`` runs after a warm-up,
-    each ending in a device synchronisation."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    best = None
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        best = dt if best is None else min(best, dt)
-    return best, work / best
-
-
 def numpy_rank(bwt, pos):
     """occ[q, s] = # of s in bwt[:pos[q]] for sorted pos, by numpy counts
     over the segments between consecutive positions."""
@@ -1275,51 +1244,31 @@ def extend_chain(torch, query, st, pats):
 
 
 def phase_queries(torch, kept, smi):
-    """The query workloads of bench.py:225-321 through the port's
-    engine/query.py over the flat and the packed index of phase 5's
-    sustained regime; rank held against numpy counts over the host copy of
-    the BWT, backward search against chained extends, the tiers against
-    each other."""
+    """bench.py's query stages through the port's bench (query_inputs from
+    default_rng(1) in the JAX bench's order; stage_rank, stage_extend,
+    stage_bsearch over engine/query.py) on the flat and the packed index
+    of phase 5's sustained regime; rank held against numpy counts over the
+    host copy of the BWT, backward search against chained extends, the
+    tiers against each other."""
+    from ropebwt2_tpu_torch import bench
     from ropebwt2_tpu_torch.engine import query
 
     Q, iters = QUERY_RANK
     Qb, plen = QUERY_SEARCH
+    if (iters, Qb, plen) != (bench.ITERS, Q // 4, bench.PLEN):
+        raise AssertionError("phase 8's workloads are not the bench's")
     reads = kept["reads"]
     out, answers = {}, {}
     for tier in ("flat", "packed"):
         host, n = kept[tier]
         st = type(host)(**{k: v.to(DEV) for k, v in vars(host).items()})
-        g = torch.Generator(device=DEV).manual_seed(8)
-        pos0 = torch.sort(torch.randint(0, n, (Q,), device=DEV,
-                                        generator=g)).values
-
-        def ranks():
-            p = pos0
-            for _ in range(iters):
-                occ = query.rank1a(st, p)
-                p = (p + (occ[:, 0] & 1)).clamp(0, n - 1)
-            return p
-
-        ik0 = torch.stack([
-            torch.sort(torch.randint(0, n - 200, (Q,), device=DEV,
-                                     generator=g)).values,
-            torch.zeros(Q, dtype=torch.int64, device=DEV),
-            torch.full((Q,), 100, dtype=torch.int64, device=DEV)], dim=1)
-        rows = torch.arange(Q, device=DEV)
-
-        def extends():
-            ik = ik0
-            for i in range(iters):
-                ok = query.extend(st, ik, is_back=True)[rows, i % 4 + 1]
-                ik = torch.cat([ok[:, :2], ok[:, 2:].clamp(min=1)], dim=1)
-            return ik
-
-        pats = torch.randint(1, 5, (Qb, plen), device=DEV, generator=g)
-        lens = torch.full((Qb,), plen, device=DEV)
-        r_s, r_rate = rate(ranks, Q * iters)
-        e_s, e_rate = rate(extends, Q * iters)
-        b_s, b_rate = rate(lambda: query.backward_search(st, pats, lens),
-                           Qb * plen)
+        qpos, starts, pats = bench.query_inputs(np.random.default_rng(1), n,
+                                                Q)
+        ranks, r_s = bench.stage_rank(st, n, qpos, DEV)
+        exts, e_s = bench.stage_extend(st, n, starts, DEV)
+        (blo, bhi), b_s = bench.stage_bsearch(st, pats, DEV)
+        r_rate, e_rate, b_rate = Q * iters / r_s, Q * iters / e_s, \
+            Qb * plen / b_s
         say(f"[8] {tier} index, n {n}: rank {r_rate / 1e6:.3f} Mq/s "
             f"({Q} positions x {iters} chained steps, best {r_s:.4f} s); "
             f"extend {e_rate / 1e6:.3f} M ext/s ({Q} bi-intervals x {iters} "
@@ -1353,8 +1302,8 @@ def phase_queries(torch, kept, smi):
             f"{int(size.max())}), == chained extend {chain_ok}")
         if not (rank_ok and found and chain_ok):
             raise AssertionError(f"phase 8 failed its checks ({tier})")
-        answers[tier] = [ranks().cpu(), extends().cpu(), lo.cpu(), hi.cpu(),
-                         torch.from_numpy(occ)]
+        answers[tier] = [ranks.cpu(), exts.cpu(), blo.cpu(), bhi.cpu(),
+                         lo.cpu(), hi.cpu(), torch.from_numpy(occ)]
         del st
         torch.cuda.empty_cache()
     same = all(torch.equal(a, b) for a, b in zip(answers["flat"],
@@ -1645,6 +1594,7 @@ def phase_runs(torch, ReadGen, flat_md5, smi):
     8 prefill batches (the last profiled) and 2 timed; its BWT must equal
     phase 5's flat BWT (md5)."""
     from ropebwt2_tpu_torch.engine import TorchBwt
+    from ropebwt2_tpu_torch.scripts.scale_run import text_md5
 
     gen = ReadGen(seed=0, nreads=M_BENCH * (1 + PREFILL + SUSTAIN),
                   L=L_BENCH, mode="coverage", cov=47.0, err=0.01)
@@ -1681,7 +1631,7 @@ def phase_runs(torch, ReadGen, flat_md5, smi):
         int(cnt.sum()) == n
     nslot, rcap = int(st.nslot), st.rcap
     res = resident_bytes(st)
-    md5 = text_md5(eng.bwt_array())
+    md5 = text_md5(eng)
     del eng, st
     torch.cuda.empty_cache()
     say(f"[10] run tier, sustained regime (runs=1): prefill {PREFILL - 1} "
@@ -1710,10 +1660,12 @@ def phase_runs(torch, ReadGen, flat_md5, smi):
 
 def phase_deep(torch, ReadGen, smi):
     """The run tier at deep coverage: scripts/configs/scale4gdeep_runs.sh's
-    configuration cut to DEEP_BATCHES batches; per batch Msym/s, then
-    symbols a slot, resident B/sym, overflow, md5, counts and an LF walk
-    from sentinel rows that spells reads of the input."""
+    configuration cut to DEEP_BATCHES batches, built through the port's
+    scale_run (TorchBwt.plan, batches, insert_batch, text_md5); per batch
+    Msym/s, then symbols a slot, resident B/sym, overflow, md5, counts and
+    an LF walk from sentinel rows that spells reads of the input."""
     from ropebwt2_tpu_torch.engine import TorchBwt, query
+    from ropebwt2_tpu_torch.scripts import scale_run
 
     mb, nb, L = DEEP_MBATCH, DEEP_BATCHES, L_BENCH
     nreads = mb * nb
@@ -1725,31 +1677,21 @@ def phase_deep(torch, ReadGen, smi):
     gen = ReadGen(seed=777, nreads=nreads, L=L, mode="coverage", cov=150.0,
                   err=0.003)
 
-    def draw():  # the next batch and the hashes of its reads as walked
-        t0 = time.perf_counter()
-        bt = gen.batch(mb).view(np.int8)
-        return bt, read_hashes(bt[:, ::-1]), time.perf_counter() - t0
-
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     eng = TorchBwt(so=1, K=128, device=DEV, defer_r=8, runs=1,
                    runs_margin=0.35)
+    eng.plan(total)  # the conversion, int32 tables for the total
     hashes, walls, gen_s = [], [], 0.0
     t_all = time.perf_counter()
-    with engine_calls() as calls, ThreadPoolExecutor(max_workers=1) as pool:
+    with engine_calls() as calls:
         reset_launches()  # the deep-coverage path
-        nxt = pool.submit(draw)
-        for i in range(nb):
-            bt, h, g = nxt.result()
+        for i, (bt, g) in enumerate(scale_run.batches(gen, nreads, mb)):
             gen_s += g
-            hashes.append(h)
-            if i + 1 < nb:
-                nxt = pool.submit(draw)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            eng.insert_multi(bt)  # reads nslot and overflow when it ends
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
+            hashes.append(read_hashes(bt[:, ::-1]))
+            # insert_multi reads nslot and overflow when it ends
+            wall, _ = scale_run.insert_batch(eng, bt, i * mb, L)
+            walls.append(wall)
             st = eng.state
             say(f"[11] batch {i + 1}: {walls[-1]:.4f} s, "
                 f"{mb * (L + 1) / walls[-1] / 1e6:.3f} Msym/s, n {eng.n}, "
@@ -1795,7 +1737,7 @@ def phase_deep(torch, ReadGen, smi):
         f"rank on the card: {L} symbols then the sentinel {shaped}; {found} "
         f"of {SCALE_WALKS} spell a read of the input")
     tm = time.perf_counter()
-    md5 = text_md5(eng.bwt_array())
+    md5 = scale_run.text_md5(eng)
     say(f"[11] bwt md5 {md5} ({time.perf_counter() - tm:.3f} s incl. "
         f"transfer); the JAX package's record of {DEEP_RECORD[1]} symbols a "
         f"slot at 29 batches has {DEEP_RECORD[0]} (its seed is not "
@@ -1814,10 +1756,13 @@ def phase_deep(torch, ReadGen, smi):
 
 def phase_long(torch, smi):
     """Long reads: LONG_READS uniform reads of 2,000-5,000 bp in one batch
-    (thousands of rounds) on the flat tier (defer_r=16) and the run tier;
+    (thousands of rounds), built through the port's longread_run.build, on
+    the flat tier (defer_r=16) and the run tier;
     equal md5s, and LF walks from every sentinel row of the run-tier
     index spell the reads (the flat index is held to it by md5)."""
-    from ropebwt2_tpu_torch.engine import TorchBwt, query
+    from ropebwt2_tpu_torch.engine import query
+    from ropebwt2_tpu_torch.scripts import longread_run
+    from ropebwt2_tpu_torch.scripts.scale_run import text_md5
 
     rng = np.random.default_rng(LONG_SEED)
     lens = rng.integers(LONG_LEN[0], LONG_LEN[1] + 1, LONG_READS)
@@ -1829,18 +1774,13 @@ def phase_long(torch, smi):
     for path, kw, case in (("long", {"defer_r": 16}, PEND_LONG),
                            ("long_runs", {"runs": 1}, PEND_LONG_RUNS)):
         torch.cuda.empty_cache()
-        eng = TorchBwt(so=1, K=128, device=DEV, **kw)
-        torch.cuda.synchronize()
         with engine_calls() as calls:
             reset_launches()  # this long-read path
-            t0 = time.perf_counter()
-            eng.insert_multi(reads)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+            eng, wall, _ = longread_run.build(reads, DEV, kw)
             launches = read_launches()
             shape_ok, big = pending_shape_ok(calls, case)
         st, n = eng.state, eng.n
-        md5s[path] = text_md5(eng.bwt_array())
+        md5s[path] = text_md5(eng)
         walk_ok, walk = True, "held to the other build by md5"
         if path == "long_runs":
             t0 = time.perf_counter()
@@ -1932,6 +1872,7 @@ def phase_sharded(torch, ReadGen, kept, smi):
     FASTQ in a fresh process (its FMD == phase 9's run 1)."""
     import torch.distributed as dist
     from ropebwt2_tpu_torch.engine import TorchBwt
+    from ropebwt2_tpu_torch.scripts.scale_run import text_md5
     from ropebwt2_tpu_torch.engine.bcr import _pad_pow2, _round_up
     from ropebwt2_tpu_torch.parallel.mesh import make_mesh
     from ropebwt2_tpu_torch.parallel.sharded import ShardedTorchBwt
@@ -2071,6 +2012,116 @@ def phase_sharded(torch, ReadGen, kept, smi):
             "sharded_batch": (one_launches, 1)}, out
 
 
+# --------------------------------------------------------------- phase 14
+
+def run_module(module, env, log_name, timeout=900):
+    """``python -m module`` from the checkout in a fresh process with
+    ``env`` added to this one's: (wall s, its stdout lines).  Its output
+    goes to smoke_out/<log_name>; raises if it exits nonzero."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", module], cwd=HERE,
+                       env={**os.environ, **env}, capture_output=True,
+                       text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    out = os.path.join(HERE, "smoke_out")
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, log_name), "w") as f:
+        f.write(r.stdout + "\n---- stderr ----\n" + r.stderr)
+    if r.returncode != 0:
+        raise AssertionError(f"{module} exited {r.returncode}: "
+                             f"{r.stderr[-3000:]}")
+    return wall, r.stdout.splitlines()
+
+
+def phase_entry_points(name, smi):
+    """The bench and scale_run as a user runs them, each in a fresh
+    process: ``python -m ropebwt2_tpu_torch.bench`` with BENCH_RUNS=2 (its
+    last line parses, has no ``degraded``, names this card and its power
+    limit, and its launches show kernel A on the batch path and A and B on
+    the sustained one), then ``python -m
+    ropebwt2_tpu_torch.scripts.scale_run`` at SCALE14_BATCHES batches of
+    2^20 reads on the packed tier with SCALE_MD5=1 (its index hashed, its
+    FM spot check passed, kernels B and C launched at CAP_SCALE14 and R 4,
+    the shapes PEND_SCALE14 and PACKED_CASES hold them at), and ``python
+    -m ropebwt2_tpu_torch.scripts.scale_shards`` (every world's parity on
+    the card)."""
+    wall, lines = run_module("ropebwt2_tpu_torch.bench",
+                             {"BENCH_RUNS": str(BENCH14_RUNS)},
+                             "phase14_bench.log")
+    line = json.loads(lines[-1])
+    d = line.get("detail", {})
+    say(f"[14] python -m ropebwt2_tpu_torch.bench (BENCH_RUNS="
+        f"{BENCH14_RUNS}), {wall:.1f} s: {json.dumps(line)}")
+    keys = ("batch", "warmup_s", "rank_queries", "extend", "backward_search",
+            "launches", "power_limit")
+    lb, ls = d.get("launches", {}).get("batch", {}), \
+        d.get("launches", {}).get("sustained", {})
+    ok = ("degraded" not in line and "error" not in line
+          and all(k in d for k in keys) and d["device"] == f"cuda:{name}"
+          and d["power_limit"] and line["value"] > 0
+          and lb.get("merge", 0) > 0 and ls.get("merge", 0) > 0
+          and ls.get("pending_merge", 0) > 0)
+    say(f"[14] bench line: value {line['value']} sym/s (sustained), batch "
+        f"{d.get('batch', {}).get('value')}, warm-up {d.get('warmup_s')} s "
+        f"(build {d.get('build_s')} s), rank "
+        f"{d.get('rank_queries', {}).get('value')} q/s, extend "
+        f"{d.get('extend', {}).get('value')} ext/s, backward_search "
+        f"{d.get('backward_search', {}).get('value')} sym-steps/s; device "
+        f"{d.get('device')}, {d.get('power_limit')}; launches {lb} / {ls}; "
+        f"complete, no degraded, names this card: {ok}; {smi}")
+    if not ok:
+        raise AssertionError("phase 14: the bench's line is not complete")
+
+    nreads = SCALE14_BATCHES << 20
+    wall, lines = run_module(
+        "ropebwt2_tpu_torch.scripts.scale_run",
+        {"SCALE_NREADS": str(nreads), "SCALE_MBATCH": str(1 << 20),
+         "SCALE_MD5": "1", "ROPEBWT2_TPU_PACK4": "1",
+         "SCALE_JSON": os.path.join(HERE, "smoke_out", "phase14_scale.json")},
+        "phase14_scale_run.log")
+    res = json.loads(next(x for x in reversed(lines)
+                          if x.startswith("[scale] RESULT "))[15:])
+    say(f"[14] python -m ropebwt2_tpu_torch.scripts.scale_run, {wall:.1f} s: "
+        f"{json.dumps(res)}")
+    sl = res["launches"]
+    phantom = 1 if nreads * (L_BENCH + 1) % 16384 == 0 else 0
+    # the shapes of phases 2b and 3: this capacity, and R 4 (a flush of
+    # kernel C every 4 of the 102 rounds of a batch)
+    flushes = SCALE14_BATCHES * -(-(L_BENCH + 1) // 4)
+    ok = (res["index_tier"] == "packed" and len(res.get("bwt_md5", "")) == 32
+          and min(res["spot_check"]) >= 1
+          and res["counts"][0] == nreads + phantom + 4
+          and sum(res["counts"]) == res["symbols"] + phantom + 4 * 13
+          and res["device"] == f"cuda:{name}"
+          and res["capacity"] == CAP_SCALE14
+          and sl["pending_merge"] == SCALE14_BATCHES * (L_BENCH + 1)
+          and sl["merge_packed"] == flushes)
+    say(f"[14] scale_run: packed, cap {res['capacity']}, {res['symbols']} "
+        f"symbols, steady {res['steady_throughput_sym_s'] / 1e6:.3f} Msym/s, "
+        f"all-in {res['throughput_sym_s'] / 1e6:.3f} Msym/s, md5 "
+        f"{res['bwt_md5']}, FM spot check {res['spot_check']}, launches "
+        f"{sl} (B {SCALE14_BATCHES * (L_BENCH + 1)} and C {flushes} at R 4 "
+        f"wanted); checks {ok}")
+    if not ok:
+        raise AssertionError("phase 14: scale_run's result fails its checks")
+
+    wall, lines = run_module("ropebwt2_tpu_torch.scripts.scale_shards", {},
+                             "phase14_scale_shards.log")
+    worlds = [x for x in lines if x.startswith("WEAK D=")]
+    for x in lines:
+        say(f"[14] scale_shards: {x}")
+    ok = (bool(worlds) and all(x.endswith("parity=ok") for x in worlds)
+          and f"cuda:{name}" in lines[0])
+    say(f"[14] python -m ropebwt2_tpu_torch.scripts.scale_shards, {wall:.1f} "
+        f"s: {len(worlds)} world(s) on the card, each rank 0's BWT equal "
+        f"to TorchBwt's: {ok}")
+    if not ok:
+        raise AssertionError("phase 14: scale_shards' parity fails")
+    return {"bench_batch": (lb, BENCH14_RUNS),
+            "bench_sustained": (ls, PREFILL + SUSTAIN),
+            "scale_run": (sl, SCALE14_BATCHES)}
+
+
 def kernel_table(merge_res, packed_res, pend_res, paths, probes):
     """The kernels line: A, B, C with their launches per batch on every
     path, their time, plain time and bound at the shape of each path, and
@@ -2094,8 +2145,13 @@ def kernel_table(merge_res, packed_res, pend_res, paths, probes):
                                       "plain_ms", "bound_ms") if f in v}
                 for k, v in res.items()}
 
-    pend = {f"pcap {k[0]} {int(100 * k[1])}% full": v
+    pend = {f"pcap {k[0]} M {k[1]} {int(100 * k[2])}% full": v
             for k, v in pend_res.items()}
+
+    def pend_at(case, frac=None):
+        return pend_res[(case[0], case[1], case[3] if frac is None
+                         else frac)]
+
     # time and bound of A, B, C at the shape each path gives them
     at_path = {
         "merge": {"batch": merge_res["batch"],
@@ -2105,18 +2161,18 @@ def kernel_table(merge_res, packed_res, pend_res, paths, probes):
                   "sharded": merge_res["sharded flush"],
                   "sharded_batch":
                       merge_res[f"stitched s_lo {SHARD_SLO[-1]}"]},
-        "pending_merge": {"sustained": pend_res[(PEND_SHAPE[0], 0.3)],
-                          "sustained_packed": pend_res[(PEND_SHAPE[0], 0.3)],
-                          "capacity": pend_res[(PEND_CAPACITY[0],
-                                                PEND_CAPACITY[3])],
-                          "cli": pend_res[(PEND_CLI[0], PEND_CLI[3])],
-                          **{path: pend_res[(c[0], c[3])] for path, c in (
+        "pending_merge": {"sustained": pend_at(PEND_SHAPE, 0.3),
+                          "sustained_packed": pend_at(PEND_SHAPE, 0.3),
+                          **{path: pend_at(c) for path, c in (
+                              ("capacity", PEND_CAPACITY), ("cli", PEND_CLI),
                               ("runs", PEND_RUNS), ("runs_deep", PEND_DEEP),
                               ("sharded", PEND_RUNS),
                               ("long", PEND_LONG),
-                              ("long_runs", PEND_LONG_RUNS))}},
+                              ("long_runs", PEND_LONG_RUNS),
+                              ("scale_run", PEND_SCALE14))}},
         "merge_packed": {"sustained_packed": packed_res["sustained"],
-                         "capacity": packed_res["flush"]},
+                         "capacity": packed_res["flush"],
+                         "scale_run": packed_res["scale_run flush"]},
     }
     main = []
     for name, source, replaces, res, first, headline in (
@@ -2124,7 +2180,7 @@ def kernel_table(merge_res, packed_res, pend_res, paths, probes):
          merge_res, merge_res["batch"], "sustained"),
         ("pending_merge", "pending.cu",
          "ropebwt2_tpu/index/pending_pallas.py:279", pend,
-         pend_res[(PEND_SHAPE[0], 0.3)], "sustained"),
+         pend_at(PEND_SHAPE, 0.3), "sustained"),
         ("merge_packed", "merge_packed.cu",
          "ropebwt2_tpu/index/merge_pallas_packed.py:353", packed_res,
          packed_res["round"], "capacity"),
@@ -2172,9 +2228,8 @@ def main():
         print("chip_smoke: no CUDA device; refusing to run on the CPU",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.join(HERE, "scripts"))
-    from readgen import ReadGen
     from ropebwt2_tpu_torch import _build
+    from ropebwt2_tpu_torch.scripts.readgen import ReadGen
 
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -2219,7 +2274,7 @@ def main():
     packed_res = timed("2b", phase_packed, torch)
     pend_res = timed("3", phase_pending, torch)
     timed("4", phase_small, torch, ReadGen)
-    paths, kept = timed("5", phase_main, torch, ReadGen)
+    paths, kept = timed("5", phase_main, torch)
     paths.update(timed("6", phase_capacity, torch, ReadGen))
     probes, probe_launches = phase_probes(torch)
     probes["launches"] = probe_launches
@@ -2233,6 +2288,7 @@ def main():
                                   smi)
     paths.update(shard_paths)
     merge_res.update(stitched)
+    paths.update(timed("14", phase_entry_points, name, smi))
 
     kernels = kernel_table(merge_res, packed_res, pend_res, paths, probes)
     say(json.dumps({"kernels": kernels,

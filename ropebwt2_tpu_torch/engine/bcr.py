@@ -451,17 +451,27 @@ class TorchBwt:
             return 0, 0
         return r, pending_cap(mpad, r)
 
-    def _plan(self, extra_symbols: int):
+    def plan(self, total_symbols: int):
+        """Plan the index for ``total_symbols`` more at once, as a driver
+        that knows its whole input does (the JAX scripts' upfront
+        ``_plan(total)``): the whole capacity on the flat and packed tiers;
+        on the run tier the conversion and tables wide enough for the
+        total, while every batch makes room for its own slots (slots for
+        the whole total at once would hold up to twice its symbols)."""
+        self._plan(total_symbols, upfront=True)
+
+    def _plan(self, extra_symbols: int, upfront: bool = False):
         """Grow the capacity to hold ``extra_symbols`` more.  Past the runs
         threshold the index is (or becomes) a run-tier index
-        (_plan_runs).  Past the pack4 threshold the index is (or becomes)
-        packed, its capacity rounded linearly to PACK_ALIGN.  Otherwise an
-        upfront plan (>= 4x the capacity, >= 2^24) rounds linearly to
-        PLAN_ALIGN, and incremental growth to a power of two."""
+        (_plan_runs; ``upfront`` sizes no slots).  Past the pack4 threshold
+        the index is (or becomes) packed, its capacity rounded linearly to
+        PACK_ALIGN.  Otherwise an upfront plan (>= 4x the capacity, >= 2^24)
+        rounds linearly to PLAN_ALIGN, and incremental growth to a power of
+        two."""
         need = self._n + extra_symbols
         if self._runs_thr is not None and (need > self._runs_thr or
                                            isinstance(self.state, RunBwt)):
-            self._plan_runs(need, extra_symbols)
+            self._plan_runs(need, extra_symbols, slots=not upfront)
             return
         cap = self.state.cap
         is_packed = isinstance(self.state, PackedFlatBwt)
@@ -509,15 +519,15 @@ class TorchBwt:
             syms, lens, rcap_for_slots(nr + max(nr // 4, RCAP_ALIGN)),
             total_bound, self._n, st.psize, st.pcounts, device=self.device)
 
-    def _plan_runs(self, need: int, extra: int):
+    def _plan_runs(self, need: int, extra: int, slots: bool = True):
         """The run tier's plan for ``extra`` more symbols (``need`` in
         all): convert the index if it is not a run-tier index yet, widen
-        the tables to int64 when ``need`` leaves int32, then make room for
-        ``runs_margin`` slots a symbol (2 while the index holds fewer slots
-        than the batch has symbols), or for ``runs_rcap`` slots.  Unlike the
-        JAX engine, which returns after a conversion, a converted index is
-        sized for the batch too: there a first batch of more than ~8000
-        symbols overflows the conversion's 16,384 slots."""
+        the tables to int64 when ``need`` leaves int32, then (if ``slots``)
+        make room for ``runs_margin`` slots a symbol (2 while the index
+        holds fewer slots than the batch has symbols), or for ``runs_rcap``
+        slots.  Unlike the JAX engine, which returns after a conversion, a
+        converted index is sized for the batch too: there a first batch of
+        more than ~8000 symbols overflows the conversion's 16,384 slots."""
         if not isinstance(self.state, RunBwt):
             self._to_runs(need)
         st = self.state
@@ -526,6 +536,8 @@ class TorchBwt:
                 slot_lengths(st.rend), st.rsym, st.nslot, torch.int64)
             self.state = st = dataclasses.replace(st, rend=rend,
                                                   bstart=bstart, bocc=bocc)
+        if not slots:
+            return
         if self._runs_rcap > 0:
             if self._runs_rcap > st.rcap:
                 self.state = grow_runs_state(

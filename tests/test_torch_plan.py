@@ -149,7 +149,8 @@ def test_jax_index_carried_into_the_port(so, defer_r):
 
 def test_port_imports_and_builds_without_jax():
     """A GPU deployment of the port has no JAX: the port must import and
-    run with jax made unimportable, and must not pull in the JAX package."""
+    run with jax made unimportable, and must not pull in the JAX package
+    or a module of the JAX repo's scripts/."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -178,6 +179,16 @@ def test_port_imports_and_builds_without_jax():
         "import ropebwt2_tpu_torch.oracle as o\n"
         "import ropebwt2_tpu_torch.bruteforce as bf\n"
         "from ropebwt2_tpu_torch.parallel.sharded import ShardedTorchBwt\n"
+        "import ropebwt2_tpu_torch.bench as bench\n"
+        "for m in ('readgen', 'common', 'scale_run', 'gen_scale_input',\n"
+        "          'longread_run', 'scale_exp', 'scale_shards'):\n"
+        "    __import__('ropebwt2_tpu_torch.scripts.' + m)\n"
+        "from ropebwt2_tpu_torch.scripts.scale_run import text_md5\n"
+        "g = bench.reads_gen(bench.Config(M=64, L=20, prefill_x=1,\n"
+        "                                 sustain_runs=1))\n"
+        "be = TorchBwt(so=1, device='cpu', runs=1)\n"
+        "be.insert_multi(g.batch(64).view(np.int8))\n"
+        "assert text_md5(be) == text_md5(be.bwt_array())\n"
         "sh = ShardedTorchBwt(so=1, defer_r=2, device='cpu')\n"
         "sh.insert_multi([np.array([1, 2, 3, 4], np.int8)] * 3)\n"
         "assert sh.counts().tolist() == [3, 3, 3, 3, 3, 0]\n"
@@ -194,6 +205,10 @@ def test_port_imports_and_builds_without_jax():
         "    assert (type(e.state).__name__ == 'RunBwt') == bool(runs)\n"
         "assert not any(m.split('.')[0] in ('jax', 'ropebwt2_tpu')\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
+        "import os\n"
+        "scripts = os.path.join(os.getcwd(), 'scripts') + os.sep\n"
+        "assert not any((getattr(m, '__file__', None) or '').startswith(\n"
+        "    scripts) for m in list(sys.modules.values()) if m is not None)\n"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
