@@ -46,6 +46,16 @@ Phases, each reported on its own line:
    phase 14 scale_run's (pcap 2^22, 2^20 rows, half full);
    then pending_add chained over 4 rounds, a reset and 4 more, against the
    plain version round by round;
+3r. the rank kernels (csrc/rank.cu) against their plain versions at 2^20
+   queries, the bulk of a round's rank calls: flat over cap 147,062,784
+   (int32 tables, sorted and uniform positions; int64 tables) and cap 2^24,
+   the pending index at pcap 2^24 half full and 2^20 30% full, and the
+   deferred path's virtual rank (two launches); each timed alone as a CUDA
+   graph of its launch, beside its plain version and its bound (bytes read
+   once and written once over 3.35 TB/s: positions, answers, the distinct
+   prefix rows and 32-byte sectors of the rows below each position;
+   probes/_timing.py); the packed rank kernel is held and timed in phase
+   6 on that phase's index;
 4. small builds (4096 reads x 101 in 2 batches, so 0/1/2, defer_r 0/8):
    the card's BWT equals the CPU's byte for byte, and an LF walk from
    every sentinel spells back the multiset of the reads; the same builds
@@ -55,19 +65,22 @@ Phases, each reported on its own line:
    K = 128), through the port's bench stage functions
    (ropebwt2_tpu_torch/bench.py): one batch into an empty index, then a
    fresh index planned for 11 batches with 8 prefill and 2 timed batches;
-   kernels A and B must launch.  The sustained regime runs again on the packed tier
-   (pack4=1), and its BWT must equal the flat run's (by md5);
+   kernels A and B and the flat and pending rank kernels must launch.
+   The sustained regime runs again on the packed tier (pack4=1), and its
+   BWT must equal the flat run's (by md5);
 6. the capacity tier at the size of scripts/scale_run.py's runs, built
    through the port's scripts/scale_run.py (TorchBwt.plan, batches,
    insert_batch, text_md5): coverage reads (seed 0, 47x, 1% errors) x 101,
    RLO, batches of 2^20 reads, pack4="auto", planned upfront for 21
    batches (2,246,049,792 symbols, n past 2^31): packed from the first
    batch, R = 16, pcap 2^24.
-   counts() after every batch; packed rank equal to the int8 rank with
-   int64 tables at 2^20+ positions (every anchor boundary +-1, positions
-   past 2^31); an LF walk from 4096 sentinel rows spells reads of the
-   input; the md5 of the BWT in scale_run.py's text encoding.  Kernels B
-   and C must launch;
+   counts() after every batch; the packed rank kernel and its plain
+   version, and the flat rank kernel on the unpacked int8 copy with int64
+   tables, equal to the plain int8 rank at 2^20+ positions (every anchor
+   boundary +-1, positions past 2^31); the packed rank kernel timed at
+   2^20 sorted positions; an LF walk from 4096 sentinel rows spells reads
+   of the input; the md5 of the BWT in scale_run.py's text encoding.  Kernels B
+   and C and the packed and pending rank kernels must launch;
 7. the probe suite (ropebwt2_tpu_torch/probes), the counterparts of the
    TPU probe scripts, in the order H (kernel A's cost per CTA against its
    bound), F (the merge wrapper's steps), E (kernel A's stages looped
@@ -305,6 +318,25 @@ SHARD_SLO = (0, 5, 3 * M_BENCH // 4)
 SHARD_SHIFT = (SHARD_D * SHARD_PCAP, 2 * 16 * SHARD_ROUTED)  # tail, s_lo
 PEND_SHARDED = (SHARD_PCAP, M_BENCH, SHARD_LCAP + SHARD_PCAP, 0.25,
                 SHARD_ROUTED)
+# phase 3r: the rank kernels (csrc/rank.cu) at the shapes the build gives
+# them: 2^20 queries a call (plan_round ranks twice a round at M = 2^20);
+# flat over the sustained plan's capacity (int32 tables, as the engine keeps
+# them below 2^31; int64 as past it) and over 2^24, the positions sorted as
+# the plan's are (one case uniform); the pending index at the capacity
+# path's pcap 2^24 half full and the sustained path's pcap 2^20 30% full;
+# the deferred path's virtual rank (pending, then the flat count at g - p
+# plus the pending counts); the packed rank on phase 6's index
+RANK_Q = 1 << 20
+RANK_FLAT = (  # name, cap, int64 tables, sorted positions
+    ("sustained", CAP_FLUSH, False, True),
+    ("sustained uniform", CAP_FLUSH, False, False),
+    ("sustained int64", CAP_FLUSH, True, True),
+    ("batch", 1 << 24, False, True),
+)
+RANK_PEND = (  # name, pcap, max vp, share full
+    ("capacity", 1 << 24, CAP_SCALE, 0.5),
+    ("sustained", 1 << 20, CAP_FLUSH, 0.3),
+)
 # kernel ms of the kernels that the present designs replaced, from this
 # script (the merge wrapper's: probe F, whole wrapper on the device) on an
 # NVIDIA H100 80GB HBM3 at 700 W, printed beside the new times: B by
@@ -378,7 +410,7 @@ def _counters():
     """(module, kernel name, key) of every launch count: a module-level
     int (key None) or a dict entry."""
     from ropebwt2_tpu_torch.index import (
-        merge_cuda, merge_packed_cuda, pending_cuda,
+        merge_cuda, merge_packed_cuda, pending_cuda, rank_cuda,
     )
     from ropebwt2_tpu_torch.probes import (
         kernel_features, kernel_stages, warmup_build,
@@ -387,6 +419,7 @@ def _counters():
     out = [(merge_cuda, "merge", None), (pending_cuda, "pending_merge", None),
            (merge_packed_cuda, "merge_packed", None),
            (warmup_build, "toy", None)]
+    out += [(rank_cuda, k, k) for k in rank_cuda.LAUNCHES]
     out += [(kernel_stages, f"stage_{s}", s) for s in kernel_stages.STAGES]
     out += [(kernel_features, k, k) for k in kernel_features.KERNELS]
     return out
@@ -791,6 +824,125 @@ def phase_pending(torch):
     return out
 
 
+# --------------------------------------------------------------- phase 3r
+
+def rank_case(torch, label, kernel, plain, nbytes, extra=None, tag="[3r]"):
+    """Hold a rank kernel's call to its plain version (every output exact)
+    and time both: the kernel's launch alone in a CUDA graph, the plain
+    version with CUDA events; the bound is ``nbytes`` over the card's
+    memory rate.  Returns the case's record."""
+    from ropebwt2_tpu_torch.probes import _timing
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
+    err = max(max_abs_diff(g, w) for g, w in zip(got, want))
+    ms = _timing.graph_ms(kernel)
+    plain_ms = time_ms(plain)
+    bound_ms = _timing.bound_ms(nbytes)
+    say(f"{tag} {label}: max_abs_err {err} (tolerance 0) kernel {ms:.4f} ms "
+        f"plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({nbytes} B read "
+        f"once and written once), share {bound_ms / ms:.3f}"
+        + "".join(f", {k} {v}" for k, v in (extra or {}).items()))
+    if err != 0:
+        raise AssertionError(f"rank kernel disagrees ({label})")
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bytes": nbytes, "library_ms": None, **(extra or {})}
+
+
+def phase_rank(torch):
+    """The rank kernels against their plain versions at RANK_FLAT's and
+    RANK_PEND's shapes, and the virtual rank of the deferred path (two
+    launches) against rank_virtual_base's plain arithmetic."""
+    from ropebwt2_tpu_torch.index import rank_cuda
+    from ropebwt2_tpu_torch.index.flat import PAD_TAIL
+    from ropebwt2_tpu_torch.index.pending import (
+        INF, KP, PendingIndex, pending_rank,
+    )
+    from ropebwt2_tpu_torch.index.rank import build_block_tables, rank_global
+    from ropebwt2_tpu_torch.probes import _timing
+
+    gen = torch.Generator(device=DEV).manual_seed(31)
+    q = RANK_Q
+    flat, pend = {}, {}
+    for name, cap, wide, ordered in RANK_FLAT:
+        n = cap - 12345
+        bwt = torch.randint(-128, 128, (cap + PAD_TAIL,), generator=gen,
+                            device=DEV, dtype=torch.int8)
+        bwt[:n] = torch.randint(0, 6, (n,), generator=gen, device=DEV,
+                                dtype=torch.int8)
+        dt = torch.int64 if wide else torch.int32
+        tab = build_block_tables(bwt, 128, dt)
+        pos = torch.randint(0, n + 1, (q,), generator=gen, device=DEV)
+        if ordered:
+            pos = torch.sort(pos).values
+        flat[name] = rank_case(
+            torch, f"flat {name}: cap {cap}, {q} "
+                   f"{'sorted' if ordered else 'uniform'} positions, "
+                   f"{str(dt)[6:]} tables",
+            lambda: rank_cuda.rank_flat(bwt, tab, pos, 128),
+            lambda: rank_global(bwt, tab, pos, 128),
+            _timing.rank_flat_bytes(pos, 128, dt.itemsize,
+                                    bwt.shape[0] // 128, tab.shape[0]))
+        if name == "sustained":
+            base = (bwt, tab, n)
+        else:
+            del bwt, tab
+        del pos
+        torch.cuda.empty_cache()
+    for name, pcap, nmax, frac in RANK_PEND:
+        pfill = int(pcap * frac)
+        vp = torch.full((pcap,), INF, dtype=torch.int64, device=DEV)
+        vp[:pfill] = torch.sort(torch.randint(
+            0, nmax - pfill, (pfill,), generator=gen, device=DEV
+        )).values + torch.arange(pfill, device=DEV)
+        psym = torch.full((pcap,), 6, dtype=torch.int8, device=DEV)
+        psym[:pfill] = torch.randint(0, 6, (pfill,), generator=gen,
+                                     device=DEV, dtype=torch.int8)
+        pi = PendingIndex(
+            vp=vp, psym=psym,
+            blk_prefix=build_block_tables(psym, KP, dtype=torch.int32),
+            p=torch.tensor(pfill, dtype=torch.int64, device=DEV))
+        g = torch.sort(torch.randint(0, nmax + pfill, (q,), generator=gen,
+                                     device=DEV)).values
+        p, _ = pending_rank(pi, g)
+        pend[name] = rank_case(
+            torch, f"pending {name}: pcap {pcap}, {int(100 * frac)}% full, "
+                   f"{q} sorted queries",
+            lambda: rank_cuda.pending_rank(pi, g),
+            lambda: pending_rank(pi, g), _timing.rank_pend_bytes(g, p),
+            {"searchsorted_ms": time_ms(lambda: torch.searchsorted(vp, g))})
+        if name == "sustained":
+            # the deferred path's virtual rank over the sustained flat base
+            bwt, tab, n = base
+            gv = g.clamp(max=n + pfill)
+            pv, _ = pending_rank(pi, gv)
+            nb = _timing.rank_pend_bytes(gv, pv) + _timing.rank_flat_bytes(
+                gv - pv, 128, tab.element_size(), bwt.shape[0] // 128,
+                tab.shape[0], fused=True)
+
+            def plain_virtual():
+                p0, extra = pending_rank(pi, gv)
+                out = rank_global(bwt, tab, gv - p0, 128)
+                return out + extra.to(out.dtype)
+
+            def virtual():
+                p0, extra = rank_cuda.pending_rank(pi, gv)
+                return rank_cuda.rank_flat(bwt, tab, gv, 128, sub=p0,
+                                           extra=extra)
+
+            flat["virtual"] = rank_case(
+                torch, f"virtual rank (pending, then the flat count at g - "
+                       f"p plus the pending counts; two launches): cap "
+                       f"{bwt.shape[0] - PAD_TAIL}, pcap {pcap}, {q} sorted "
+                       f"queries", virtual, plain_virtual, nb)
+            del base, bwt, tab
+        del vp, psym, pi, g, p
+        torch.cuda.empty_cache()
+    return {"rank_flat": flat, "rank_pend": pend}
+
+
 # ---------------------------------------------------------------- phase 4
 
 def lf_strings(bwt, m):
@@ -860,7 +1012,9 @@ def report_profile(label, wall, rows, top=12, tag="[5]"):
     for name, us, calls in rows[:top]:
         say(f"{tag}   {us / 1e3:10.3f} ms {100 * us / 1e6 / busy:5.1f}% "
             f"{calls:7d}x {name[:90]}")
-    for kernel in ("merge_kernel", "pending_kernel", "merge_packed_kernel"):
+    for kernel in ("merge_kernel", "pending_kernel", "merge_packed_kernel",
+                   "rank_flat_kernel", "rank_packed_kernel",
+                   "rank_pend_kernel"):
         for name, us, calls in rows:  # the hand-written kernels, wherever
             if kernel in name:        # they rank
                 say(f"{tag}   {kernel}: {us / 1e3:.3f} ms, "
@@ -876,6 +1030,8 @@ def report_profile(label, wall, rows, top=12, tag="[5]"):
 KINDS = (  # kind of a profiled kernel, by the first match in its name
     ("kernels A, B, C", ("merge_kernel", "pending_kernel",
                          "merge_packed_kernel")),
+    ("rank kernels", ("rank_flat_kernel", "rank_packed_kernel",
+                      "rank_pend_kernel")),
     ("searchsorted", ("searchsorted",)),
     ("bucket sort", ("sort", "radix", "Sort")),
     ("scans", ("scan", "cumsum", "cummax", "cummin", "Scan")),
@@ -956,7 +1112,8 @@ def phase_main(torch):
         f"{launched(batch_launches)}; on the sustained path ({SUSTAIN} timed "
         f"batches): {launched(launches)}; peak device memory {peak} B "
         f"({peak / 2**30:.3f} GiB)")
-    if launches["merge"] == 0 or launches["pending_merge"] == 0:
+    if any(launches[k] == 0 for k in ("merge", "pending_merge", "rank_flat",
+                                       "rank_pend")):
         raise AssertionError(f"a kernel never launched: {launches}")
 
     # the sustained regime again on the packed tier: the same BWT
@@ -994,9 +1151,10 @@ def phase_main(torch):
         f"encoding): {packed_md5 == flat_md5} ({packed_md5}, {flat_md5})")
     if packed_md5 != flat_md5:
         raise AssertionError("the packed tier's BWT differs from the flat's")
-    if p_launches["merge_packed"] == 0 or p_launches["pending_merge"] == 0:
+    if any(p_launches[k] == 0 for k in ("merge_packed", "pending_merge",
+                                         "rank_packed", "rank_pend")):
         raise AssertionError(f"a kernel never launched: {p_launches}")
-    if batch_launches["merge"] == 0:
+    if batch_launches["merge"] == 0 or batch_launches["rank_flat"] == 0:
         raise AssertionError(f"a kernel never launched: {batch_launches}")
     return {"batch": (batch_launches, 1), "sustained": (launches, SUSTAIN),
             "sustained_packed": (p_launches, SUSTAIN)}, kept
@@ -1051,7 +1209,9 @@ def phase_capacity(torch, ReadGen):
     from ropebwt2_tpu_torch.index.packed import (
         ACHUNK, PackedFlatBwt, rank_global_packed, unpack_bwt,
     )
+    from ropebwt2_tpu_torch.index import rank_cuda
     from ropebwt2_tpu_torch.index.rank import build_block_tables, rank_global
+    from ropebwt2_tpu_torch.probes import _timing
     from ropebwt2_tpu_torch.scripts import scale_run
 
     mb, nbatch, L = SCALE_MBATCH, SCALE_BATCHES, L_BENCH
@@ -1119,20 +1279,36 @@ def phase_capacity(torch, ReadGen):
                      device=DEV),
     ]).clamp(0, n)
     flat_bwt = unpack_bwt(st.pbwt)
-    want = rank_global(flat_bwt, build_block_tables(flat_bwt, 128), pos, 128)
-    del flat_bwt
-    rank_err = max_abs_diff(
-        rank_global_packed(st.pbwt, st.blkA, st.blkB, pos), want)
-    del want
+    tables = build_block_tables(flat_bwt, 128)
+    want = rank_global(flat_bwt, tables, pos, 128)
+    rank_err = max(
+        max_abs_diff(rank_cuda.rank_flat(flat_bwt, tables, pos, 128), want),
+        max_abs_diff(rank_cuda.rank_packed(st.pbwt, st.blkA, st.blkB, pos),
+                     want),
+        max_abs_diff(rank_global_packed(st.pbwt, st.blkA, st.blkB, pos),
+                     want))
+    del flat_bwt, tables, want
     torch.cuda.empty_cache()
-    say(f"[6] rank: packed == int8 with int64 tables at {pos.numel()} "
+    say(f"[6] rank: the packed rank kernel and its plain version, and the "
+        f"flat rank kernel over the unpacked int8 copy with int64 tables, "
+        f"== the plain flat rank with int64 tables at {pos.numel()} "
         f"positions ({anchors.numel()} anchor boundaries +-1, "
         f"{int((pos >= 1 << 31).sum())} at or past 2^31): max_abs_err "
         f"{rank_err} (tolerance 0)")
+    qpos = torch.sort(torch.randint(0, n + 1, (RANK_Q,), generator=g,
+                                    device=DEV)).values
+    rank_res = {"capacity": rank_case(
+        torch, f"packed capacity (phase 6's index): cap {st.cap}, n {n}, "
+               f"{RANK_Q} sorted positions", lambda: rank_cuda.rank_packed(
+                   st.pbwt, st.blkA, st.blkB, qpos),
+        lambda: rank_global_packed(st.pbwt, st.blkA, st.blkB, qpos),
+        _timing.rank_packed_bytes(qpos, st.blkB.shape[0] // 2 - 1),
+        tag="[6]")}
+    del qpos
 
     # LF walks from sentinel rows spell reads of the input
     spelled = lf_walk(
-        torch, lambda p: rank_global_packed(st.pbwt, st.blkA, st.blkB, p),
+        torch, lambda p: rank_cuda.rank_packed(st.pbwt, st.blkA, st.blkB, p),
         torch.from_numpy(eng.counts()).to(DEV),
         torch.arange(SCALE_WALKS, device=DEV), L + 1)
     spelled = spelled.cpu().numpy()
@@ -1153,9 +1329,10 @@ def phase_capacity(torch, ReadGen):
     torch.cuda.empty_cache()
     if n <= 1 << 31 or rank_err != 0 or not shaped or found != SCALE_WALKS:
         raise AssertionError("the capacity phase failed its checks")
-    if launches["merge_packed"] == 0 or launches["pending_merge"] == 0:
+    if any(launches[k] == 0 for k in ("merge_packed", "pending_merge",
+                                       "rank_packed", "rank_pend")):
         raise AssertionError(f"a kernel never launched: {launches}")
-    return {"capacity": (launches, nbatch)}
+    return {"capacity": (launches, nbatch)}, rank_res
 
 
 # ---------------------------------------------------------------- phase 7
@@ -2122,14 +2299,16 @@ def phase_entry_points(name, smi):
             "scale_run": (sl, SCALE14_BATCHES)}
 
 
-def kernel_table(merge_res, packed_res, pend_res, paths, probes):
+def kernel_table(merge_res, packed_res, pend_res, rank_res, paths, probes):
     """The kernels line: A, B, C with their launches per batch on every
-    path, their time, plain time and bound at the shape of each path, and
-    every probe kernel of phase 7."""
+    path, their time, plain time and bound at the shape of each path, the
+    rank kernels with their launches per batch on every path (None where
+    a child process counted A, B and C only), and every probe kernel of
+    phase 7."""
     from ropebwt2_tpu_torch.probes import _timing, kernel_stages
 
     def by_path(name):
-        return {path: counts[name] / nbatch
+        return {path: counts[name] / nbatch if name in counts else None
                 for path, (counts, nbatch) in paths.items()}
 
     def entry(name, source, replaces, launches, err, r, **extra):
@@ -2196,6 +2375,19 @@ def kernel_table(merge_res, packed_res, pend_res, paths, probes):
             paths[headline][0][name], max(r["err"] for r in res.values()),
             first, shapes=shapes(res), by_path=path_rows,
             launches_by_path={p: c[name] for p, (c, _) in paths.items()}))
+    for name, replaces, headline in (
+        ("rank_flat", "ropebwt2_tpu/index/rank.py:38", "sustained"),
+        ("rank_pend", "ropebwt2_tpu/index/pending.py:188", "sustained"),
+        ("rank_packed", "ropebwt2_tpu/index/packed.py:244", "capacity"),
+    ):
+        res = rank_res[name]
+        main.append(entry(
+            name, "rank.cu", replaces, paths[headline][0][name],
+            max(r["err"] for r in res.values()), res[headline],
+            shapes=shapes(res),
+            launches_per_batch={p: v for p, v in by_path(name).items() if v},
+            launches_by_path={p: c.get(name) for p, (c, _) in
+                              paths.items()}))
     probes_out = []
     toy = dict(probes["toy"], bound_ms=_timing.bound_ms(2 * 4 * 8 * 128))
     probes_out.append(entry("toy", "probes/toy.cu",
@@ -2273,9 +2465,12 @@ def main():
     merge_res = timed("2", phase_merge, torch)
     packed_res = timed("2b", phase_packed, torch)
     pend_res = timed("3", phase_pending, torch)
+    rank_res = timed("3r", phase_rank, torch)
     timed("4", phase_small, torch, ReadGen)
     paths, kept = timed("5", phase_main, torch)
-    paths.update(timed("6", phase_capacity, torch, ReadGen))
+    cap_paths, rank_res["rank_packed"] = timed("6", phase_capacity, torch,
+                                               ReadGen)
+    paths.update(cap_paths)
     probes, probe_launches = phase_probes(torch)
     probes["launches"] = probe_launches
     timed("8", phase_queries, torch, kept, smi)
@@ -2290,7 +2485,8 @@ def main():
     merge_res.update(stitched)
     paths.update(timed("14", phase_entry_points, name, smi))
 
-    kernels = kernel_table(merge_res, packed_res, pend_res, paths, probes)
+    kernels = kernel_table(merge_res, packed_res, pend_res, rank_res, paths,
+                           probes)
     say(json.dumps({"kernels": kernels,
                     "not_compiled": probes["failed"]}))
     say(smi)

@@ -2,7 +2,8 @@
 
 Three libraries, each with a plain C interface that ``ctypes`` loads:
 
-- ``main``: every ``csrc/*.cu``, the kernels of the build path (A, B, C);
+- ``main``: every ``csrc/*.cu``, the kernels of the build path (A, B, C
+  and the rank kernels of ``csrc/rank.cu``);
 - ``probes``: the probe suite's kernels under ``csrc/probes/`` (kernel A's
   stages looped alone, the Hopper feature probes);
 - ``toy``: the toy kernel (``csrc/probes/toy.cu``) alone, which
@@ -51,6 +52,13 @@ ENTRY_POINTS = {
     # vp, psym, varr, sarr, start, p_after, vp_out, psym_out, rows,
     # pcap, nb, inf, stream
     "rb2_pending_merge": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # bwt, prefix, pos, sub, extra, out, Q, K, nprefix, nrows, wide, stream
+    "rb2_rank_flat": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # pbwt, blkA, blkB, pos, sub, extra, out, Q, nprows, nrp, nanchor,
+    # stream
+    "rb2_rank_packed": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # vp, psym, prefix, g, p, occ, Q, pcap, stream
+    "rb2_rank_pend": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
 }
 # the Hopper feature probes of csrc/probes/features.cu, one unit each
 # (-DRB2_FEATURE=<index>); section 0, the two plain stagings, is required

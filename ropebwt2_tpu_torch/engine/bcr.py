@@ -39,7 +39,6 @@ from ..index.packed import (
     PackedFlatBwt,
     grow_packed_state,
     packed_from_flat,
-    rank_global_packed,
     unpack_bwt,
 )
 from ..index.pending import (
@@ -50,7 +49,7 @@ from ..index.pending import (
     rank_virtual_base,
     reset_pending,
 )
-from ..index.rank import rank_global
+from ..index import rank_cuda
 from ..index.runs import (
     RCAP_ALIGN,
     RUN_LEN_MAX,
@@ -240,14 +239,18 @@ def plan_round(psize, pcounts, reads: ReadStates, buf, d: int,
 
 
 def _state_rank_fn(state, K):
-    """rank_fn(gpos) -> (M, 6) over the base of any tier."""
+    """rank_fn(gpos, sub=None, extra=None) -> (M, 6) over the base of any
+    tier: the rank at gpos - sub, plus extra (rank_cuda's convention; the
+    rank kernels on the flat and the packed tier)."""
     if isinstance(state, RunBwt):
-        return lambda g: rank_global_runs(state.rend, state.rsym,
-                                          state.bstart, state.bocc, g)
+        return lambda g, sub=None, extra=None: rank_cuda.shifted(
+            lambda p: rank_global_runs(state.rend, state.rsym, state.bstart,
+                                       state.bocc, p), g, sub, extra)
     if isinstance(state, PackedFlatBwt):
-        return lambda g: rank_global_packed(state.pbwt, state.blkA,
-                                            state.blkB, g)
-    return lambda g: rank_global(state.bwt, state.blk_prefix, g, K)
+        return lambda g, sub=None, extra=None: rank_cuda.rank_packed(
+            state.pbwt, state.blkA, state.blkB, g, sub, extra)
+    return lambda g, sub=None, extra=None: rank_cuda.rank_flat(
+        state.bwt, state.blk_prefix, g, K, sub, extra)
 
 
 def _state_merge(state, pos, sym, stream, valid, n, K):

@@ -7,15 +7,16 @@ RunBwt) and a batch of queries: positions (Q,), intervals, or bi-intervals
 (Q, 3) in rld's convention x = (backward start, forward start, size)
 (rld0.h:43-46).
 Queries may be tensors, arrays or lists; they move to the index's device.
-The work is plain torch on that device, and every result is int64.
+The work is plain torch on that device around the rank kernels
+(index/rank_cuda.py), and every result is int64.
 """
 
 import torch
 
 from ..alphabet import NSYM
 from ..index.flat import FlatBwt
-from ..index.packed import PackedFlatBwt, rank_global_packed
-from ..index.rank import rank_global
+from ..index import rank_cuda
+from ..index.packed import PackedFlatBwt
 from ..index.runs import RunBwt, rank_global_runs
 
 I64 = torch.int64
@@ -56,8 +57,8 @@ def _base_rank(state, pos, K):
         return rank_global_runs(state.rend, state.rsym, state.bstart,
                                 state.bocc, pos).long()
     if tier == "packed":
-        return rank_global_packed(state.pbwt, state.blkA, state.blkB, pos)
-    return rank_global(state.bwt, state.blk_prefix, pos, K).long()
+        return rank_cuda.rank_packed(state.pbwt, state.blkA, state.blkB, pos)
+    return rank_cuda.rank_flat(state.bwt, state.blk_prefix, pos, K).long()
 
 
 def _C(state):

@@ -39,7 +39,7 @@ import torch
 from ..alphabet import NSYM
 from .flat import PAD
 from .rank import block_counts, prefix_rows
-from . import pending_cuda
+from . import pending_cuda, rank_cuda
 
 KP = 128  # pending rank-table block size
 # empty-row sentinel, the JAX package's _inf(int64): headroom keeps
@@ -123,10 +123,11 @@ def pending_rank(pend: PendingIndex, g):
 
 def rank_virtual_base(base_rank_fn, pend: PendingIndex, g):
     """6-symbol rank of the virtual (base + pending) sequence at ``g``, with
-    the base answered by base_rank_fn(pos) -> (Q, 6)."""
-    p, extra = pending_rank(pend, g)
-    base = base_rank_fn(g - p)
-    return base + extra.to(base.dtype)
+    the base answered by base_rank_fn(pos, sub, extra) -> rank(pos - sub) +
+    extra, (Q, 6) (rank_cuda's convention): the rank kernels' two launches
+    on the card, the pending count's and the base count's."""
+    p, extra = rank_cuda.pending_rank(pend, g)
+    return base_rank_fn(g, sub=p, extra=extra)
 
 
 def pending_add(pend: PendingIndex, gX, sym, stream, active) -> PendingIndex:

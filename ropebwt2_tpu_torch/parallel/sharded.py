@@ -69,10 +69,10 @@ from ..index.pending import (
     pending_add,
     pending_cap,
     pending_flush_args,
-    pending_rank,
     reset_pending,
 )
-from ..index.rank import build_block_tables, rank_global
+from ..index import rank_cuda
+from ..index.rank import build_block_tables
 from .comm import ShardComm
 from .mesh import local_block, make_mesh
 
@@ -106,7 +106,8 @@ def _routed_rank_fn(comm, st, lcap, K):
         tgt = (gpos // lcap).clamp(0, comm.d - 1)
         _, (rq,), route = comm.exchange(tgt, None, [gpos])
         local = (rq - comm.s * lcap).clamp(0, lcap)
-        return comm.reply(route, rank_global(st.bwt, st.blk_prefix, local, K))
+        return comm.reply(route, rank_cuda.rank_flat(st.bwt, st.blk_prefix,
+                                                     local, K))
 
     return rank_fn
 
@@ -209,11 +210,11 @@ def _routed_rank_virtual_fn(comm, st, pend, lcap, K, ppref, pocc):
         V = _bounds(comm, lcap, ppref)
         _, (rq,), route = comm.exchange(_v_route(gpos, V), None, [gpos])
         wl = (rq - V[comm.s]).clamp(0, lcap + pend.cap)
-        p_loc, occ_loc = pending_rank(pend, wl)
-        base = rank_global(st.bwt, st.blk_prefix,
-                           (wl - p_loc).clamp(0, lcap), K)
-        ans = base + pocc[comm.s].to(base.dtype) + occ_loc.to(base.dtype)
-        return comm.reply(route, ans)
+        p_loc, occ_loc = rank_cuda.pending_rank(pend, wl)
+        base = rank_cuda.rank_flat(st.bwt, st.blk_prefix,
+                                   (wl - p_loc).clamp(0, lcap), K,
+                                   extra=occ_loc)
+        return comm.reply(route, base + pocc[comm.s].to(base.dtype))
 
     return rank_fn
 

@@ -168,6 +168,76 @@ def pending_bytes(pcap: int, p_after: int, new: int) -> int:
             + 9 * p_after + na * ROWS_PER_CTA * ROW_BYTES)
 
 
+SECTOR = 32  # bytes of the card's smallest device-memory access
+
+
+def sector_bytes(start, count) -> int:
+    """The bytes of the distinct SECTOR-byte sectors holding the byte
+    ranges [start, start + count) (int64 tensors, count >= 0): what a
+    gather of those ranges must read at the least."""
+    import torch
+
+    live = count > 0
+    first = start[live] // SECTOR
+    last = (start[live] + count[live] - 1) // SECTOR
+    span = int((last - first).max()) + 1 if first.numel() else 0
+    secs = first[:, None] + torch.arange(span, device=start.device)[None, :]
+    return int(torch.unique(secs[secs <= last[:, None]]).numel()) * SECTOR
+
+
+def rank_flat_bytes(pos, K: int, width: int, nrows: int, nprefix: int,
+                    fused: bool = False) -> int:
+    """A rank kernel (csrc/rank.cu) at the int64 positions ``pos`` of this
+    call: each query's position (and, ``fused``, its 8-byte sub and 24-byte
+    extra) read and its 6-entry answer written; the distinct 6-entry
+    prefix rows; the distinct sectors of the rows' bytes below
+    ``within`` (the bytes the count needs).  ``width``: 4 or 8 bytes an
+    entry; ``nrows``: K-rows of the buffer, ``nprefix``: prefix rows."""
+    import torch
+
+    blk = torch.div(pos, K, rounding_mode="floor")
+    within = pos - blk * K
+    rows = blk.clamp(0, nrows - 1)
+    nq = pos.numel()
+    return (nq * (8 + 6 * width + (32 if fused else 0))
+            + int(torch.unique(blk.clamp(0, nprefix - 1)).numel()) * 6 * width
+            + sector_bytes(rows * K, within))
+
+
+def rank_packed_bytes(pos, nprows: int) -> int:
+    """The packed rank at ``pos``: the flat model over the packed rows
+    (a query reads bytes of one 128-byte packed row, whose nibble plane
+    holds its symbol row), its base an int64 anchor row and an int32
+    relative row, its answer int64."""
+    import torch
+
+    blk = torch.div(pos, 128, rounding_mode="floor").clamp(0, 2 * nprows + 1)
+    within = (pos - blk * 128).clamp(0, 128)
+    brow = (blk >> 1) + (blk & 1) * (nprows + 1)
+    anchor = torch.div(pos, 1 << 24, rounding_mode="floor")
+    nq = pos.numel()
+    return (nq * (8 + 6 * 8) + int(torch.unique(anchor).numel()) * 6 * 8
+            + int(torch.unique(brow).numel()) * 6 * 4
+            + sector_bytes((blk >> 1) * 128, within))
+
+
+def rank_pend_bytes(g, p) -> int:
+    """The pending rank at ``g`` with answers ``p`` (this call's): each
+    query's g read and its p and 6 int32 counts written; the sectors of
+    vp holding the rows p - 1 and p, which any search must compare g
+    with; the distinct prefix rows and the sectors of the psym rows below
+    p in the 128-row block of row p - 1."""
+    import torch
+
+    jb = torch.div((p - 1).clamp(min=0), 128, rounding_mode="floor")
+    nq = g.numel()
+    vp_lo = (8 * (p - 1)).clamp(min=0)
+    return (nq * (8 + 8 + 6 * 4)
+            + sector_bytes(vp_lo, torch.full_like(p, 16))
+            + int(torch.unique(jb).numel()) * 6 * 4
+            + sector_bytes(jb * 128, p - jb * 128))
+
+
 def windows_bytes(nwin: int, win: int = BS) -> int:
     """A staging of ``nwin`` windows of ``win`` bytes copied out: each
     window read once (with its int64 start) and written once."""

@@ -8,7 +8,8 @@ tests/test_torch_sharded_deferred.py).  After every batch each
 rank's window and global-valued table equal the JAX state's row for that
 rank (convert.sharded_from_numpy), field by field, with lcap, (R, pcap),
 n, psize, pcounts and counts; rank 0's bwt_array and run_arrays equal
-TpuBwt's BWT.  The ranks run while this process computes the JAX side.
+TpuBwt's BWT.  This process computes the JAX side before it spawns
+the ranks.
 Exact comparisons (integers)."""
 
 import pickle
@@ -176,14 +177,15 @@ def _held_to_jax(got_by_rank, want, d, name):
 
 
 def held_to_jax(d, group, tmp_path):
-    """Run ``group``'s cases on d gloo ranks while this process runs them
-    on the JAX engine, then hold every rank's fields to the JAX state's."""
+    """Run ``group``'s cases on the JAX engine in this process, then on d
+    gloo ranks, and hold every rank's fields to the JAX state's.  The JAX
+    side runs first, before any rank is spawned: a worker once crashed
+    (a segfault while JAX loaded an executable from its persistent cache)
+    with four ranks alive beside it."""
     cs = cases(group)
-    ctx = start_world(_ranks, d, tmp_path, cs, str(tmp_path))
-    try:
-        want = [_jax_case(c, d) for c in cs]
-    finally:
-        join_world(ctx, timeout=400)
+    want = [_jax_case(c, d) for c in cs]
+    join_world(start_world(_ranks, d, tmp_path, cs, str(tmp_path)),
+               timeout=400)
     got = []
     for rank in range(d):
         with open(tmp_path / f"rank{rank}.pkl", "rb") as f:
