@@ -50,12 +50,27 @@ Phases, each reported on its own line:
    queries, the bulk of a round's rank calls: flat over cap 147,062,784
    (int32 tables, sorted and uniform positions; int64 tables) and cap 2^24,
    the pending index at pcap 2^24 half full and 2^20 30% full, and the
-   deferred path's virtual rank (two launches); each timed alone as a CUDA
-   graph of its launch, beside its plain version and its bound (bytes read
-   once and written once over 3.35 TB/s: positions, answers, the distinct
-   prefix rows and 32-byte sectors of the rows below each position;
-   probes/_timing.py); the packed rank kernel is held and timed in phase
-   6 on that phase's index;
+   deferred flat path's virtual rank (one launch) over the sustained
+   shapes; at phase 8's query shapes (flat, 2^18 sorted and 2^16 uniform
+   positions); at phase 12's long-read shapes (4096 queries: flat cap
+   2^24, pcap 2^16 half full, and the virtual rank over both); and at one
+   rank's of the sharded engine at d = 4 (2^15 queries: flat lcap 2^26,
+   pcap 2^21 a quarter full, and the virtual rank over both with g - p
+   clamped to [0, lcap]); each timed alone as a CUDA graph of its launch,
+   beside its plain version, its bound (bytes read once and written once
+   over 3.35 TB/s: positions, answers, the distinct prefix rows and
+   32-byte sectors of the rows below each position; probes/_timing.py)
+   and the earlier design's time (EARLIER_MS); the packed rank kernel is
+   held and timed in phase 6 on that phase's index.
+   ``python3 chip_smoke.py --rank-variants`` runs phase 1 and this phase
+   alone, with the earlier design's launches (probes/rank_variants.py:
+   the flat kernel as it was, with K a constant and without the count;
+   the pending kernel; the deferred round's launches) and this design's
+   parts (the flat rank's loads without the count, the pending rank's
+   search alone and its count alone) timed in the same call, each held to
+   the plain version where it computes a rank, and each kernel's SASS
+   count with its issue-slot floor; it prints them as JSON and no result
+   line;
 4. small builds (4096 reads x 101 in 2 batches, so 0/1/2, defer_r 0/8):
    the card's BWT equals the CPU's byte for byte, and an LF walk from
    every sentinel spells back the multiset of the reads; the same builds
@@ -65,7 +80,9 @@ Phases, each reported on its own line:
    K = 128), through the port's bench stage functions
    (ropebwt2_tpu_torch/bench.py): one batch into an empty index, then a
    fresh index planned for 11 batches with 8 prefill and 2 timed batches;
-   kernels A and B and the flat and pending rank kernels must launch.
+   kernels A and B and the flat rank kernel must launch on the batch path,
+   and on the sustained (deferred) path the virtual rank kernel, one
+   launch a rank, and neither the flat nor the pending rank kernel.
    The sustained regime runs again on the packed tier (pack4=1), and its
    BWT must equal the flat run's (by md5);
 6. the capacity tier at the size of scripts/scale_run.py's runs, built
@@ -324,23 +341,44 @@ PEND_SHARDED = (SHARD_PCAP, M_BENCH, SHARD_LCAP + SHARD_PCAP, 0.25,
 # them below 2^31; int64 as past it) and over 2^24, the positions sorted as
 # the plan's are (one case uniform); the pending index at the capacity
 # path's pcap 2^24 half full and the sustained path's pcap 2^20 30% full;
-# the deferred path's virtual rank (pending, then the flat count at g - p
-# plus the pending counts); the packed rank on phase 6's index
+# the deferred flat path's virtual rank (one launch) over the sustained
+# base and pending index; phase 8's queries (rlo101.queries) over the
+# sustained plan's capacity: 2^18 sorted positions (the rank and extend
+# stages), 2^16 uniform ones (the backward search's steps); phase 12's long
+# reads on the flat tier (4096 queries a call, cap 2^24, pcap 2^16 half
+# full); one rank of the sharded engine at d = 4 (phase 13: 2^15 routed
+# queries, lcap 2^26, pcap 2^21 a quarter full), whose deferred rank clamps
+# the base position to [0, lcap]; the packed rank on phase 6's index
 RANK_Q = 1 << 20
-RANK_FLAT = (  # name, cap, int64 tables, sorted positions
-    ("sustained", CAP_FLUSH, False, True),
-    ("sustained uniform", CAP_FLUSH, False, False),
-    ("sustained int64", CAP_FLUSH, True, True),
-    ("batch", 1 << 24, False, True),
+LONG_Q = 1 << 12  # phase 12's lanes: a long-read round ranks 4096 queries
+RANK_FLAT = (  # name, cap, int64 tables, sorted positions, queries
+    ("sustained", CAP_FLUSH, False, True, RANK_Q),
+    ("sustained uniform", CAP_FLUSH, False, False, RANK_Q),
+    ("sustained int64", CAP_FLUSH, True, True, RANK_Q),
+    ("batch", 1 << 24, False, True, RANK_Q),
+    ("queries rank", CAP_FLUSH, False, True, 1 << 18),
+    ("queries search", CAP_FLUSH, False, False, 1 << 16),
+    ("long", 1 << 24, False, True, LONG_Q),
+    ("sharded", SHARD_LCAP, False, True, SHARD_ROUTED),
 )
-RANK_PEND = (  # name, pcap, max vp, share full
-    ("capacity", 1 << 24, CAP_SCALE, 0.5),
-    ("sustained", 1 << 20, CAP_FLUSH, 0.3),
+RANK_PEND = (  # name, pcap, max vp, share full, queries
+    ("capacity", 1 << 24, CAP_SCALE, 0.5, RANK_Q),
+    ("sustained", 1 << 20, CAP_FLUSH, 0.3, RANK_Q),
+    ("long", 1 << 16, LONG_N, 0.5, LONG_Q),
+    ("sharded", SHARD_PCAP, SHARD_LCAP + SHARD_PCAP, 0.25, SHARD_ROUTED),
+)
+RANK_VIRTUAL = (  # name, flat base (RANK_FLAT), pending index (RANK_PEND),
+    # the clamp of g - p (None: none; the queries in [0, n + pending])
+    ("sustained", "sustained", "sustained", None),
+    ("long", "long", "long", None),
+    ("sharded", "sharded", "sharded", (0, SHARD_LCAP)),
 )
 # kernel ms of the kernels that the present designs replaced, from this
-# script (the merge wrapper's: probe F, whole wrapper on the device) on an
-# NVIDIA H100 80GB HBM3 at 700 W, printed beside the new times: B by
-# (pcap, share full), C by case, A and its wrapper by (kernel, case)
+# script (the merge wrapper's: probe F, whole wrapper on the device; the
+# rank kernels': `chip_smoke.py --rank-variants`, the earlier design's
+# launches at phase 3r's shapes) on an NVIDIA H100 80GB HBM3 at 700 W,
+# printed beside the new times: B by (pcap, share full), C by case, A and
+# its wrapper by (kernel, case), the rank kernels by (kernel, case)
 EARLIER_MS = {
     (1 << 20, 0.0): 0.0248, (1 << 20, 0.3): 0.0233, (1 << 20, 0.9): 0.0311,
     (1 << 24, 0.5): 0.4612,
@@ -349,6 +387,19 @@ EARLIER_MS = {
     ("merge", "batch"): 0.0351, ("merge", "flush"): 0.2630,
     ("merge", "dense"): 0.0125,
     ("wrapper", "batch"): 0.2626, ("wrapper", "flush"): 2.2789,
+    ("rank_flat", "sustained"): 0.1194,
+    ("rank_flat", "sustained uniform"): 0.1239,
+    ("rank_flat", "sustained int64"): 0.1278,
+    ("rank_flat", "batch"): 0.1102, ("rank_flat", "queries rank"): 0.0322,
+    ("rank_flat", "queries search"): 0.0089, ("rank_flat", "long"): 0.0031,
+    ("rank_flat", "sharded"): 0.0055,
+    ("rank_pend", "capacity"): 0.1063, ("rank_pend", "sustained"): 0.0935,
+    ("rank_pend", "long"): 0.0088, ("rank_pend", "sharded"): 0.0107,
+    # the deferred rank's earlier launches: the pending kernel, then the
+    # flat kernel at g - p (clamped in torch between them on the sharded
+    # engine)
+    ("rank_virtual", "sustained"): 0.2167, ("rank_virtual", "long"): 0.0112,
+    ("rank_virtual", "sharded"): 0.0183,
 }
 
 
@@ -443,6 +494,15 @@ def read_launches():
 def launched(counts):
     """The kernels of ``counts`` that launched, for printing."""
     return {k: v for k, v in counts.items() if v}
+
+
+def deferred_flat(tag, counts):
+    """A deferred path on the flat tier ranks through the virtual rank
+    kernel, one launch a rank: it must launch, and the pending rank kernel
+    (the first of the earlier two launches) must not."""
+    if counts["rank_virtual"] == 0 or counts["rank_pend"] != 0:
+        raise AssertionError(f"{tag} the deferred flat rank did not go "
+                             f"through rank_virtual alone: {counts}")
 
 
 # ---------------------------------------------------------------- phase 2
@@ -826,11 +886,15 @@ def phase_pending(torch):
 
 # --------------------------------------------------------------- phase 3r
 
-def rank_case(torch, label, kernel, plain, nbytes, extra=None, tag="[3r]"):
+def rank_case(torch, label, kernel, plain, nbytes, extra=None, tag="[3r]",
+              earlier_ms=None, variants=()):
     """Hold a rank kernel's call to its plain version (every output exact)
     and time both: the kernel's launch alone in a CUDA graph, the plain
     version with CUDA events; the bound is ``nbytes`` over the card's
-    memory rate.  Returns the case's record."""
+    memory rate.  ``earlier_ms``: the earlier design's time (EARLIER_MS),
+    printed beside where given.  ``variants``: (name, fn, holds) of launches timed in
+    a CUDA graph beside the kernel (--rank-variants) and, where ``holds``,
+    held to the plain version too.  Returns the case's record."""
     from ropebwt2_tpu_torch.probes import _timing
 
     got, want = kernel(), plain()
@@ -838,109 +902,217 @@ def rank_case(torch, label, kernel, plain, nbytes, extra=None, tag="[3r]"):
     if isinstance(got, torch.Tensor):
         got, want = (got,), (want,)
     err = max(max_abs_diff(g, w) for g, w in zip(got, want))
+    times = {}
+    for name, fn, holds in variants:
+        if holds:
+            out = fn()
+            out = (out,) if isinstance(out, torch.Tensor) else out
+            verr = max(max_abs_diff(g, w) for g, w in zip(out, want))
+            if verr != 0:
+                raise AssertionError(f"{name} disagrees ({label})")
+        times[name] = _timing.graph_ms(fn)
     ms = _timing.graph_ms(kernel)
     plain_ms = time_ms(plain)
     bound_ms = _timing.bound_ms(nbytes)
     say(f"{tag} {label}: max_abs_err {err} (tolerance 0) kernel {ms:.4f} ms "
-        f"plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({nbytes} B read "
-        f"once and written once), share {bound_ms / ms:.3f}"
-        + "".join(f", {k} {v}" for k, v in (extra or {}).items()))
+        + ("" if earlier_ms is None else
+           f"(earlier design {earlier_ms:.4f} ms) ")
+        + f"plain {plain_ms:.4f} ms "
+        f"bound {bound_ms:.4f} ms ({nbytes} B read once and written once), "
+        f"share {bound_ms / ms:.3f}"
+        + "".join(f", {k} {v}" for k, v in (extra or {}).items())
+        + "".join(f"; {k} {v:.4f} ms (share {bound_ms / v:.3f})"
+                  for k, v in times.items()))
     if err != 0:
         raise AssertionError(f"rank kernel disagrees ({label})")
     return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bytes": nbytes, "library_ms": None, **(extra or {})}
+            "bytes": nbytes, "library_ms": None, "variants": times,
+            **(extra or {})}
 
 
-def phase_rank(torch):
-    """The rank kernels against their plain versions at RANK_FLAT's and
-    RANK_PEND's shapes, and the virtual rank of the deferred path (two
-    launches) against rank_virtual_base's plain arithmetic."""
+def rank_flat_input(torch, gen, cap, wide, ordered, q):
+    """(bwt, tables, n, pos): a flat buffer of cap symbols (any byte past
+    n), its K = 128 tables, and q positions in [0, n]."""
+    from ropebwt2_tpu_torch.index.flat import PAD_TAIL
+    from ropebwt2_tpu_torch.index.rank import build_block_tables
+
+    n = cap - 12345
+    bwt = torch.randint(-128, 128, (cap + PAD_TAIL,), generator=gen,
+                        device=DEV, dtype=torch.int8)
+    bwt[:n] = torch.randint(0, 6, (n,), generator=gen, device=DEV,
+                            dtype=torch.int8)
+    tab = build_block_tables(bwt, 128, torch.int64 if wide else torch.int32)
+    pos = torch.randint(0, n + 1, (q,), generator=gen, device=DEV)
+    if ordered:
+        pos = torch.sort(pos).values
+    return bwt, tab, n, pos
+
+
+def rank_pend_input(torch, gen, pcap, nmax, frac, q):
+    """(pending index, g): pcap rows, a share ``frac`` of them live below
+    nmax + their count, and q sorted queries in that range."""
+    from ropebwt2_tpu_torch.index.pending import INF, KP, PendingIndex
+    from ropebwt2_tpu_torch.index.rank import build_block_tables
+
+    pfill = int(pcap * frac)
+    vp = torch.full((pcap,), INF, dtype=torch.int64, device=DEV)
+    vp[:pfill] = torch.sort(torch.randint(
+        0, nmax - pfill, (pfill,), generator=gen, device=DEV
+    )).values + torch.arange(pfill, device=DEV)
+    psym = torch.full((pcap,), 6, dtype=torch.int8, device=DEV)
+    psym[:pfill] = torch.randint(0, 6, (pfill,), generator=gen,
+                                 device=DEV, dtype=torch.int8)
+    pi = PendingIndex(
+        vp=vp, psym=psym,
+        blk_prefix=build_block_tables(psym, KP, dtype=torch.int32),
+        p=torch.tensor(pfill, dtype=torch.int64, device=DEV))
+    g = torch.sort(torch.randint(0, nmax + pfill, (q,), generator=gen,
+                                 device=DEV)).values
+    return pi, g
+
+
+def phase_rank(torch, variants=False):
+    """The rank kernels against their plain versions at RANK_FLAT's,
+    RANK_PEND's and RANK_VIRTUAL's shapes, each beside the earlier
+    design's time (EARLIER_MS).  With ``variants`` (--rank-variants), also
+    the earlier design's launches (probes/rank_variants.py) timed in the
+    same call: the flat rank as it was, with K a constant and without the
+    count; the pending rank; the deferred round's launches that the
+    virtual rank replaces; and this design's parts: the flat rank's loads
+    without the count, the pending rank's search alone and its count
+    alone."""
     from ropebwt2_tpu_torch.index import rank_cuda
     from ropebwt2_tpu_torch.index.flat import PAD_TAIL
-    from ropebwt2_tpu_torch.index.pending import (
-        INF, KP, PendingIndex, pending_rank,
-    )
-    from ropebwt2_tpu_torch.index.rank import build_block_tables, rank_global
-    from ropebwt2_tpu_torch.probes import _timing
+    from ropebwt2_tpu_torch.index.pending import pending_rank, rank_virtual
+    from ropebwt2_tpu_torch.index.rank import rank_global
+    from ropebwt2_tpu_torch.probes import _timing, rank_variants as var
 
     gen = torch.Generator(device=DEV).manual_seed(31)
-    q = RANK_Q
-    flat, pend = {}, {}
-    for name, cap, wide, ordered in RANK_FLAT:
-        n = cap - 12345
-        bwt = torch.randint(-128, 128, (cap + PAD_TAIL,), generator=gen,
-                            device=DEV, dtype=torch.int8)
-        bwt[:n] = torch.randint(0, 6, (n,), generator=gen, device=DEV,
-                                dtype=torch.int8)
-        dt = torch.int64 if wide else torch.int32
-        tab = build_block_tables(bwt, 128, dt)
-        pos = torch.randint(0, n + 1, (q,), generator=gen, device=DEV)
-        if ordered:
-            pos = torch.sort(pos).values
+    flat, pend, virt = {}, {}, {}
+    bases = {}
+    for name, cap, wide, ordered, q in RANK_FLAT:
+        bwt, tab, n, pos = rank_flat_input(torch, gen, cap, wide, ordered, q)
+        runs = []
+        if variants:
+            modes = (0, 1, 2) if name == "sustained" else (0,)
+            runs = [(f"earlier mode {m}",
+                     lambda m=m: var.flat(m, bwt, tab, pos, 128), m != 2)
+                    for m in modes]
+            if not wide:
+                runs.append(("this design's loads without the count",
+                             lambda: var.part_flat(bwt, tab, pos), False))
         flat[name] = rank_case(
             torch, f"flat {name}: cap {cap}, {q} "
                    f"{'sorted' if ordered else 'uniform'} positions, "
-                   f"{str(dt)[6:]} tables",
+                   f"{str(tab.dtype)[6:]} tables",
             lambda: rank_cuda.rank_flat(bwt, tab, pos, 128),
             lambda: rank_global(bwt, tab, pos, 128),
-            _timing.rank_flat_bytes(pos, 128, dt.itemsize,
-                                    bwt.shape[0] // 128, tab.shape[0]))
-        if name == "sustained":
-            base = (bwt, tab, n)
-        else:
-            del bwt, tab
-        del pos
+            _timing.rank_flat_bytes(pos, 128, tab.element_size(),
+                                    bwt.shape[0] // 128, tab.shape[0]),
+            earlier_ms=EARLIER_MS.get(("rank_flat", name)), variants=runs)
+        if any(name == b for _, b, _, _ in RANK_VIRTUAL):
+            bases[name] = (bwt, tab, n)
+        del bwt, tab, pos
         torch.cuda.empty_cache()
-    for name, pcap, nmax, frac in RANK_PEND:
-        pfill = int(pcap * frac)
-        vp = torch.full((pcap,), INF, dtype=torch.int64, device=DEV)
-        vp[:pfill] = torch.sort(torch.randint(
-            0, nmax - pfill, (pfill,), generator=gen, device=DEV
-        )).values + torch.arange(pfill, device=DEV)
-        psym = torch.full((pcap,), 6, dtype=torch.int8, device=DEV)
-        psym[:pfill] = torch.randint(0, 6, (pfill,), generator=gen,
-                                     device=DEV, dtype=torch.int8)
-        pi = PendingIndex(
-            vp=vp, psym=psym,
-            blk_prefix=build_block_tables(psym, KP, dtype=torch.int32),
-            p=torch.tensor(pfill, dtype=torch.int64, device=DEV))
-        g = torch.sort(torch.randint(0, nmax + pfill, (q,), generator=gen,
-                                     device=DEV)).values
+    pends = {}
+    for name, pcap, nmax, frac, q in RANK_PEND:
+        pi, g = rank_pend_input(torch, gen, pcap, nmax, frac, q)
         p, _ = pending_rank(pi, g)
+        runs = [("earlier", lambda: var.pend(pi, g), True),
+                ("this design's search alone",
+                 lambda: var.part_pend(False, pi, g), False),
+                ("this design's count alone (p given)",
+                 lambda: var.part_pend(True, pi, g, p), True)]
         pend[name] = rank_case(
             torch, f"pending {name}: pcap {pcap}, {int(100 * frac)}% full, "
                    f"{q} sorted queries",
             lambda: rank_cuda.pending_rank(pi, g),
             lambda: pending_rank(pi, g), _timing.rank_pend_bytes(g, p),
-            {"searchsorted_ms": time_ms(lambda: torch.searchsorted(vp, g))})
-        if name == "sustained":
-            # the deferred path's virtual rank over the sustained flat base
-            bwt, tab, n = base
-            gv = g.clamp(max=n + pfill)
-            pv, _ = pending_rank(pi, gv)
-            nb = _timing.rank_pend_bytes(gv, pv) + _timing.rank_flat_bytes(
-                gv - pv, 128, tab.element_size(), bwt.shape[0] // 128,
-                tab.shape[0], fused=True)
-
-            def plain_virtual():
-                p0, extra = pending_rank(pi, gv)
-                out = rank_global(bwt, tab, gv - p0, 128)
-                return out + extra.to(out.dtype)
-
-            def virtual():
-                p0, extra = rank_cuda.pending_rank(pi, gv)
-                return rank_cuda.rank_flat(bwt, tab, gv, 128, sub=p0,
-                                           extra=extra)
-
-            flat["virtual"] = rank_case(
-                torch, f"virtual rank (pending, then the flat count at g - "
-                       f"p plus the pending counts; two launches): cap "
-                       f"{bwt.shape[0] - PAD_TAIL}, pcap {pcap}, {q} sorted "
-                       f"queries", virtual, plain_virtual, nb)
-            del base, bwt, tab
-        del vp, psym, pi, g, p
+            {"searchsorted_ms": time_ms(lambda: torch.searchsorted(pi.vp, g))},
+            earlier_ms=EARLIER_MS.get(("rank_pend", name)),
+            variants=runs if variants else ())
+        if any(name == pn for _, _, pn, _ in RANK_VIRTUAL):
+            pends[name] = (pi, g, pcap, frac)
+        del p
         torch.cuda.empty_cache()
-    return {"rank_flat": flat, "rank_pend": pend}
+    for name, bname, pname, clamp in RANK_VIRTUAL:
+        bwt, tab, n = bases[bname]
+        pi, g, pcap, frac = pends[pname]
+        lo, hi = clamp or (None, None)
+        # the engine's queries: [0, n + pending] unclamped; the sharded
+        # engine's [0, lcap + pcap] in its window
+        gv = g.clamp(0, hi + pcap) if clamp else g.clamp(
+            max=n + int(pcap * frac))
+        pv, _ = pending_rank(pi, gv)
+        x = gv - pv if clamp is None else (gv - pv).clamp(lo, hi)
+        nb = _timing.rank_virtual_bytes(gv, pv, x, 128, tab.element_size(),
+                                        bwt.shape[0] // 128, tab.shape[0])
+
+        def earlier_launches(gv=gv, lo=lo, hi=hi):
+            # the earlier deferred rank: the pending kernel, then the flat
+            # kernel at g - p plus the pending counts (the sharded engine
+            # clamped g - p in torch between them)
+            p0, e = var.pend(pi, gv)
+            if lo is None:
+                return var.flat(0, bwt, tab, gv, 128, p0, e)
+            return var.flat(0, bwt, tab, (gv - p0).clamp(lo, hi), 128,
+                            extra=e)
+
+        clamped = {} if clamp is None else {
+            "clamped": int(((gv - pv) != x).sum())}
+        virt[name] = rank_case(
+            torch, f"virtual {name} (one launch: the pending search and "
+                   f"count and the flat count at g - p"
+                   f"{'' if clamp is None else f' clamped to {list(clamp)}'}"
+                   f"): cap {bwt.shape[0] - PAD_TAIL}, pcap {pcap} "
+                   f"{int(100 * frac)}% full, {gv.shape[0]} sorted queries",
+            lambda: rank_cuda.rank_virtual_flat(bwt, tab, pi, gv, 128,
+                                                lo=lo, hi=hi),
+            lambda: rank_virtual(bwt, tab, pi, gv, 128, lo, hi), nb,
+            clamped, earlier_ms=EARLIER_MS.get(("rank_virtual", name)),
+            variants=[("earlier launches", earlier_launches, True)]
+            if variants else ())
+        del pv, x
+    del bases, pends
+    torch.cuda.empty_cache()
+    return {"rank_flat": flat, "rank_pend": pend, "rank_virtual": virt}
+
+
+def rank_issue(torch):
+    """Each rank kernel's SASS instructions (cuobjdump) and the least time
+    its warps take to issue them at RANK_Q queries, at the card's top SM
+    clock: the issue-slot floor beside the bytes bound (--rank-variants)."""
+    from ropebwt2_tpu_torch import _build
+    from ropebwt2_tpu_torch.probes import rank_variants as var
+
+    # the path's kernels from the main library, the earlier design's and
+    # this design's parts from the probe library
+    sass = {k: v for k, v in var.sass_counts(
+        _build.library_path("main")).items() if k.startswith("rank_")}
+    sass.update({k: v for k, v in var.sass_counts(
+        _build.library_path("probes")).items() if k.startswith("rankvar_")})
+    try:
+        clock = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, check=True).stdout.split()[0])
+    except (OSError, subprocess.CalledProcessError, ValueError, IndexError):
+        return {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for kernel, qpw in (  # queries a warp
+            ("rank_flat_kernelIiLi1E", 32), ("rank_flat_kernelIlLi1E", 32),
+            ("rank_pend_kernel", 32), ("rank_virtual_kernelIiLi1E", 32),
+            ("rankvar_flat_kernelIiLi0E", 4), ("rankvar_flat_kernelIiLi1E", 4),
+            ("rankvar_flat_kernelIiLi2E", 4), ("rankvar_pend_kernel", 32)):
+        if kernel in sass:
+            floor = var.issue_floor_ms(sass[kernel], RANK_Q // qpw, sms,
+                                       clock)
+            out[kernel] = {"sass": sass[kernel], "issue_floor_ms": floor}
+            say(f"[3r] issue: {kernel}: {sass[kernel]} SASS instructions, "
+                f"{qpw} queries a warp: at {RANK_Q} queries {floor:.4f} ms "
+                f"to issue them on {sms} SMs x 4 schedulers at {clock} MHz")
+    return out
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1014,7 +1186,7 @@ def report_profile(label, wall, rows, top=12, tag="[5]"):
             f"{calls:7d}x {name[:90]}")
     for kernel in ("merge_kernel", "pending_kernel", "merge_packed_kernel",
                    "rank_flat_kernel", "rank_packed_kernel",
-                   "rank_pend_kernel"):
+                   "rank_pend_kernel", "rank_virtual_kernel"):
         for name, us, calls in rows:  # the hand-written kernels, wherever
             if kernel in name:        # they rank
                 say(f"{tag}   {kernel}: {us / 1e3:.3f} ms, "
@@ -1031,7 +1203,7 @@ KINDS = (  # kind of a profiled kernel, by the first match in its name
     ("kernels A, B, C", ("merge_kernel", "pending_kernel",
                          "merge_packed_kernel")),
     ("rank kernels", ("rank_flat_kernel", "rank_packed_kernel",
-                      "rank_pend_kernel")),
+                      "rank_pend_kernel", "rank_virtual_kernel")),
     ("searchsorted", ("searchsorted",)),
     ("bucket sort", ("sort", "radix", "Sort")),
     ("scans", ("scan", "cumsum", "cummax", "cummin", "Scan")),
@@ -1112,9 +1284,12 @@ def phase_main(torch):
         f"{launched(batch_launches)}; on the sustained path ({SUSTAIN} timed "
         f"batches): {launched(launches)}; peak device memory {peak} B "
         f"({peak / 2**30:.3f} GiB)")
-    if any(launches[k] == 0 for k in ("merge", "pending_merge", "rank_flat",
-                                       "rank_pend")):
+    if launches["merge"] == 0 or launches["pending_merge"] == 0:
         raise AssertionError(f"a kernel never launched: {launches}")
+    deferred_flat("[5] sustained:", launches)
+    if launches["rank_flat"] != 0:
+        raise AssertionError(f"[5] the deferred path ran rank_flat: "
+                             f"{launches}")
 
     # the sustained regime again on the packed tier: the same BWT
     flat_md5 = text_md5(eng)
@@ -1152,8 +1327,10 @@ def phase_main(torch):
     if packed_md5 != flat_md5:
         raise AssertionError("the packed tier's BWT differs from the flat's")
     if any(p_launches[k] == 0 for k in ("merge_packed", "pending_merge",
-                                         "rank_packed", "rank_pend")):
-        raise AssertionError(f"a kernel never launched: {p_launches}")
+                                         "rank_packed", "rank_pend")) \
+            or p_launches["rank_virtual"] != 0:
+        raise AssertionError(f"a kernel never launched (or the flat tier's "
+                             f"ran on the packed): {p_launches}")
     if batch_launches["merge"] == 0 or batch_launches["rank_flat"] == 0:
         raise AssertionError(f"a kernel never launched: {batch_launches}")
     return {"batch": (batch_launches, 1), "sustained": (launches, SUSTAIN),
@@ -1748,6 +1925,7 @@ def phase_cli(torch, ReadGen, smi):
         raise AssertionError("phase 9 failed its checks")
     if launches["merge"] == 0 or launches["pending_merge"] == 0:
         raise AssertionError(f"a kernel never launched: {launches}")
+    deferred_flat("[9] the CLI's run 2:", launches)
     return {"cli": (launches, nbatch)}, {"run1_s": wall, "run2_s": wall2}
 
 
@@ -1978,6 +2156,8 @@ def phase_long(torch, smi):
             raise AssertionError(f"phase 12 failed its checks ({path})")
         if launches["pending_merge"] == 0:
             raise AssertionError(f"kernel B never launched: {launches}")
+        if path == "long":
+            deferred_flat("[12] long, flat tier:", launches)
         out[path] = (launches, 1)
         del eng, st
     same = md5s["long"] == md5s["long_runs"]
@@ -2161,6 +2341,7 @@ def phase_sharded(torch, ReadGen, kept, smi):
             one_launches["merge"] == 0:
         raise AssertionError(f"a kernel never launched: {launches}, "
                              f"{one_launches}")
+    deferred_flat("[13b] sharded:", launches)
 
     # 13c: the CLI's switch, in a fresh process, on phase 9's FASTQ
     smoke = os.path.join(HERE, "smoke_out")
@@ -2375,15 +2556,22 @@ def kernel_table(merge_res, packed_res, pend_res, rank_res, paths, probes):
             paths[headline][0][name], max(r["err"] for r in res.values()),
             first, shapes=shapes(res), by_path=path_rows,
             launches_by_path={p: c[name] for p, (c, _) in paths.items()}))
-    for name, replaces, headline in (
-        ("rank_flat", "ropebwt2_tpu/index/rank.py:38", "sustained"),
-        ("rank_pend", "ropebwt2_tpu/index/pending.py:188", "sustained"),
-        ("rank_packed", "ropebwt2_tpu/index/packed.py:244", "capacity"),
+    # the rank kernels: launches from the path that runs them most (the
+    # batch regime merges every round; the deferred flat paths rank through
+    # the virtual kernel; the packed and run tiers through the pending one)
+    for name, replaces, headline, case in (
+        ("rank_flat", "ropebwt2_tpu/index/rank.py:38", "batch", "sustained"),
+        ("rank_pend", "ropebwt2_tpu/index/pending.py:188", "capacity",
+         "capacity"),
+        ("rank_virtual", "ropebwt2_tpu/index/pending.py:289", "sustained",
+         "sustained"),
+        ("rank_packed", "ropebwt2_tpu/index/packed.py:244", "capacity",
+         "capacity"),
     ):
         res = rank_res[name]
         main.append(entry(
             name, "rank.cu", replaces, paths[headline][0][name],
-            max(r["err"] for r in res.values()), res[headline],
+            max(r["err"] for r in res.values()), res[case],
             shapes=shapes(res),
             launches_per_batch={p: v for p, v in by_path(name).items() if v},
             launches_by_path={p: c.get(name) for p, (c, _) in
@@ -2462,6 +2650,21 @@ def main():
             f"({time.perf_counter() - t0:.1f} s since the build began)")
         return res
 
+    if sys.argv[1:] == ["--rank-variants"]:
+        # on request: phase 3r with the earlier design's launches and this
+        # design's parts, and the kernels' SASS counts; no other phase
+        res = timed("3r", phase_rank, torch, True)
+        res["issue"] = rank_issue(torch)
+        say(json.dumps({"rank_variants": {
+            k: {c: {f: r[f] for f in ("ms", "bound_ms", "variants")}
+                for c, r in v.items()} if k != "issue" else v
+            for k, v in res.items()}}))
+        say(smi)
+        return 0
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}; the only one "
+              "is --rank-variants", file=sys.stderr)
+        return 2
     merge_res = timed("2", phase_merge, torch)
     packed_res = timed("2b", phase_packed, torch)
     pend_res = timed("3", phase_pending, torch)

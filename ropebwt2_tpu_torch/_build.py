@@ -5,7 +5,9 @@ Three libraries, each with a plain C interface that ``ctypes`` loads:
 - ``main``: every ``csrc/*.cu``, the kernels of the build path (A, B, C
   and the rank kernels of ``csrc/rank.cu``);
 - ``probes``: the probe suite's kernels under ``csrc/probes/`` (kernel A's
-  stages looped alone, the Hopper feature probes);
+  stages looped alone, the Hopper feature probes, the rank kernels'
+  earlier design and parts, which ``chip_smoke.py --rank-variants``
+  times);
 - ``toy``: the toy kernel (``csrc/probes/toy.cu``) alone, which
   ``probes/warmup_build.py`` launches and builds cold to time the
   toolchain.
@@ -52,13 +54,17 @@ ENTRY_POINTS = {
     # vp, psym, varr, sarr, start, p_after, vp_out, psym_out, rows,
     # pcap, nb, inf, stream
     "rb2_pending_merge": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # bwt, prefix, pos, sub, extra, out, Q, K, nprefix, nrows, wide, stream
-    "rb2_rank_flat": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # bwt, prefix, pos, out, Q, K, nprefix, nrows, wide, stream
+    "rb2_rank_flat": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # pbwt, blkA, blkB, pos, sub, extra, out, Q, nprows, nrp, nanchor,
     # stream
     "rb2_rank_packed": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # vp, psym, prefix, g, p, occ, Q, pcap, stream
     "rb2_rank_pend": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # bwt, prefix, vp, psym, pprefix, g, out, Q, K, nprefix, nrows, pcap,
+    # lo, hi, wide, stream
+    "rb2_rank_virtual": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _I, _I, _P],
 }
 # the Hopper feature probes of csrc/probes/features.cu, one unit each
 # (-DRB2_FEATURE=<index>); section 0, the two plain stagings, is required
@@ -111,14 +117,31 @@ def _probe_library() -> Library:
         "rb2_stage_gather": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
         "rb2_stage_counts": [_P, _P, _P, _I, _I, _I, _P],
     }
+    rankvar = {  # the rank kernels measured by parts (csrc/probes)
+        # mode, bwt, prefix, pos, sub, extra, out, Q, K, nprefix, nrows,
+        # wide, stream
+        "rb2_rankvar_flat": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _P],
+        # vp, psym, prefix, g, p, occ, Q, pcap, stream
+        "rb2_rankvar_pend": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+        # csrc/rank.cu's kernels by part: bwt, prefix, pos, out, Q,
+        # nprefix, nrows, stream; count, vp, psym, prefix, g, p, occ, Q,
+        # pcap, stream
+        "rb2_rankpart_flat": [_P, _P, _P, _P, _I, _I, _I, _P],
+        "rb2_rankpart_pend": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    }
     feat = PROBE_SRC / "features.cu"
     units = [
         Unit("stages", PROBE_SRC / "stages.cu", entry_points=stages),
         Unit("features_0", feat, ("-DRB2_FEATURE=0",), entry_points={
             "rb2_stage_bytes": _WINDOWS, "rb2_stage_vec16": _WINDOWS}),
     ] + [Unit(f"features_{i}", feat, (f"-DRB2_FEATURE={i}",), True,
-              _FEATURE_ENTRY_POINTS[f]) for i, f in enumerate(FEATURES, 1)]
-    headers = sorted(PROBE_SRC.glob("*.cuh")) + [CSRC / "common.cuh"]
+              _FEATURE_ENTRY_POINTS[f]) for i, f in enumerate(FEATURES, 1)
+         ] + [Unit("rank_variants", PROBE_SRC / "rank_variants.cu",
+                   entry_points=rankvar)]
+    # rank_variants.cu includes csrc/rank.cu
+    headers = sorted(PROBE_SRC.glob("*.cuh")) + [CSRC / "common.cuh",
+                                                 CSRC / "rank.cu"]
     return Library("librb2probes", tuple(units), tuple(headers))
 
 

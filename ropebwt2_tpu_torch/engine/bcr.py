@@ -239,9 +239,10 @@ def plan_round(psize, pcounts, reads: ReadStates, buf, d: int,
 
 
 def _state_rank_fn(state, K):
-    """rank_fn(gpos, sub=None, extra=None) -> (M, 6) over the base of any
-    tier: the rank at gpos - sub, plus extra (rank_cuda's convention; the
-    rank kernels on the flat and the packed tier)."""
+    """rank_fn(gpos) -> (M, 6) over the base of any tier (the rank kernels
+    on the flat and the packed tier); on the packed and the run tier it
+    also takes (sub, extra) and answers the rank at gpos - sub plus extra
+    (rank_cuda's convention, index/pending.py::rank_virtual_base's)."""
     if isinstance(state, RunBwt):
         return lambda g, sub=None, extra=None: rank_cuda.shifted(
             lambda p: rank_global_runs(state.rend, state.rsym, state.bstart,
@@ -249,8 +250,18 @@ def _state_rank_fn(state, K):
     if isinstance(state, PackedFlatBwt):
         return lambda g, sub=None, extra=None: rank_cuda.rank_packed(
             state.pbwt, state.blkA, state.blkB, g, sub, extra)
-    return lambda g, sub=None, extra=None: rank_cuda.rank_flat(
-        state.bwt, state.blk_prefix, g, K, sub, extra)
+    return lambda g: rank_cuda.rank_flat(state.bwt, state.blk_prefix, g, K)
+
+
+def _virtual_rank_fn(state, pend, K):
+    """rank_fn(gpos) -> (M, 6) over the frozen base plus the pending index:
+    one rank_virtual launch on the flat tier; the pending kernel, then the
+    base at g - p, on the packed tier (the run tier's base in plain torch)."""
+    if isinstance(state, (RunBwt, PackedFlatBwt)):
+        base_fn = _state_rank_fn(state, K)
+        return lambda g: rank_virtual_base(base_fn, pend, g)
+    return lambda g: rank_cuda.rank_virtual_flat(state.bwt, state.blk_prefix,
+                                                 pend, g, K)
 
 
 def _state_merge(state, pos, sym, stream, valid, n, K):
@@ -304,12 +315,11 @@ def bcr_batch_deferred(state, reads, buf, n_rounds: int, *, K, so, defer_r,
     pend = empty_pending(pcap, state.n.device)
     st, rd = state, reads
     for lo in range(0, n_rounds, defer_r):
-        base_fn = _state_rank_fn(st, K)  # the base is frozen meanwhile
         n, psize, pcounts = st.n, st.psize, st.pcounts
         for d in range(lo, min(lo + defer_r, n_rounds)):
             rd, gX, sym, stream, active, ins_bucket, n_ins = plan_round(
                 psize, pcounts, rd, buf, d, d == 0,
-                lambda g: rank_virtual_base(base_fn, pend, g), so=so,
+                _virtual_rank_fn(st, pend, K), so=so,
             )
             pend = pending_add(pend, gX, sym, stream, active)
             n = n + n_ins

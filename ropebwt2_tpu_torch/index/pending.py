@@ -38,7 +38,7 @@ import torch
 
 from ..alphabet import NSYM
 from .flat import PAD
-from .rank import block_counts, prefix_rows
+from .rank import block_counts, prefix_rows, rank_global
 from . import pending_cuda, rank_cuda
 
 KP = 128  # pending rank-table block size
@@ -121,11 +121,27 @@ def pending_rank(pend: PendingIndex, g):
     return p, occ
 
 
+def rank_virtual(bwt, blk_prefix, pend: PendingIndex, g, K: int, lo=None,
+                 hi=None):
+    """6-symbol rank of the virtual (base + pending) sequence at ``g`` over
+    a flat base (the JAX package's rank_virtual), in blk_prefix's dtype:
+    rank_global at g - p, clamped to [lo, hi] when given, plus the pending
+    counts.  Plain version of rank_cuda.rank_virtual_flat, the flat tier's
+    deferred rank in one launch."""
+    p, extra = pending_rank(pend, g)
+    x = g - p
+    if lo is not None or hi is not None:
+        x = x.clamp(lo, hi)
+    out = rank_global(bwt, blk_prefix, x, K)
+    return out + extra.to(out.dtype)
+
+
 def rank_virtual_base(base_rank_fn, pend: PendingIndex, g):
     """6-symbol rank of the virtual (base + pending) sequence at ``g``, with
     the base answered by base_rank_fn(pos, sub, extra) -> rank(pos - sub) +
-    extra, (Q, 6) (rank_cuda's convention): the rank kernels' two launches
-    on the card, the pending count's and the base count's."""
+    extra, (Q, 6) (rank_cuda's convention): on the packed tier the rank
+    kernels' two launches, the pending count's and the base count's; the
+    run tier's base is plain torch."""
     p, extra = rank_cuda.pending_rank(pend, g)
     return base_rank_fn(g, sub=p, extra=extra)
 

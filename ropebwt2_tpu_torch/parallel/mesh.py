@@ -29,7 +29,15 @@ class Mesh:
     device_mesh: typing.Any = None
 
     def close(self):
-        """End the default group if make_mesh started it."""
+        """End the 2-D mesh's subgroups, then the default group if
+        make_mesh started it, so that no gloo or NCCL group outlives the
+        mesh (a subgroup left live at a rank's exit can abort it)."""
+        if self.device_mesh is not None and dist.is_initialized():
+            for dim in range(self.device_mesh.ndim):
+                group = self.device_mesh.get_group(dim)
+                if group is not dist.GroupMember.WORLD:
+                    dist.destroy_process_group(group)
+        self.device_mesh = None
         if self.owns_group and dist.is_initialized():
             dist.destroy_process_group()
         self.owns_group = False

@@ -210,10 +210,10 @@ def _routed_rank_virtual_fn(comm, st, pend, lcap, K, ppref, pocc):
         V = _bounds(comm, lcap, ppref)
         _, (rq,), route = comm.exchange(_v_route(gpos, V), None, [gpos])
         wl = (rq - V[comm.s]).clamp(0, lcap + pend.cap)
-        p_loc, occ_loc = rank_cuda.pending_rank(pend, wl)
-        base = rank_cuda.rank_flat(st.bwt, st.blk_prefix,
-                                   (wl - p_loc).clamp(0, lcap), K,
-                                   extra=occ_loc)
+        # one launch: the base at (wl - p).clamp(0, lcap) plus the pending
+        # counts
+        base = rank_cuda.rank_virtual_flat(st.bwt, st.blk_prefix, pend, wl,
+                                           K, lo=0, hi=lcap)
         return comm.reply(route, base + pocc[comm.s].to(base.dtype))
 
     return rank_fn

@@ -185,21 +185,20 @@ def sector_bytes(start, count) -> int:
     return int(torch.unique(secs[secs <= last[:, None]]).numel()) * SECTOR
 
 
-def rank_flat_bytes(pos, K: int, width: int, nrows: int, nprefix: int,
-                    fused: bool = False) -> int:
+def rank_flat_bytes(pos, K: int, width: int, nrows: int,
+                    nprefix: int) -> int:
     """A rank kernel (csrc/rank.cu) at the int64 positions ``pos`` of this
-    call: each query's position (and, ``fused``, its 8-byte sub and 24-byte
-    extra) read and its 6-entry answer written; the distinct 6-entry
-    prefix rows; the distinct sectors of the rows' bytes below
-    ``within`` (the bytes the count needs).  ``width``: 4 or 8 bytes an
-    entry; ``nrows``: K-rows of the buffer, ``nprefix``: prefix rows."""
+    call: each query's position read and its 6-entry answer written; the
+    distinct 6-entry prefix rows; the distinct sectors of the rows' bytes
+    below ``within`` (the bytes the count needs).  ``width``: 4 or 8 bytes
+    an entry; ``nrows``: K-rows of the buffer, ``nprefix``: prefix rows."""
     import torch
 
     blk = torch.div(pos, K, rounding_mode="floor")
     within = pos - blk * K
     rows = blk.clamp(0, nrows - 1)
     nq = pos.numel()
-    return (nq * (8 + 6 * width + (32 if fused else 0))
+    return (nq * (8 + 6 * width)
             + int(torch.unique(blk.clamp(0, nprefix - 1)).numel()) * 6 * width
             + sector_bytes(rows * K, within))
 
@@ -236,6 +235,19 @@ def rank_pend_bytes(g, p) -> int:
             + sector_bytes(vp_lo, torch.full_like(p, 16))
             + int(torch.unique(jb).numel()) * 6 * 4
             + sector_bytes(jb * 128, p - jb * 128))
+
+
+def rank_virtual_bytes(g, p, x, K: int, width: int, nrows: int,
+                       nprefix: int) -> int:
+    """The one-launch virtual rank (rank_virtual) at ``g``, with this
+    call's pending answers ``p`` and base positions ``x`` (g - p, clamped
+    as the call clamps it): the pending rank's and the flat rank's bytes
+    (rank_pend_bytes, rank_flat_bytes at x), less what the two launches
+    passed through device memory: p and the pending counts written and
+    read back, and the flat rank's read of its positions."""
+    nq = g.numel()
+    return (rank_pend_bytes(g, p) - nq * (8 + 6 * 4)
+            + rank_flat_bytes(x, K, width, nrows, nprefix) - nq * 8)
 
 
 def windows_bytes(nwin: int, win: int = BS) -> int:

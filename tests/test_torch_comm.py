@@ -44,11 +44,16 @@ def join_world(ctx, timeout=300):
 
 
 def _rank_main(rank, worker, d, store, args):
+    """One rank: the worker between an explicit start and teardown.  After
+    the worker, a barrier, so that no rank leaves while a peer's last
+    collective may still reach it; then every group is destroyed (the
+    subgroups before the default group) before the process exits."""
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             rank=rank, world_size=d)
     try:
         worker(rank, d, *args)
+        dist.barrier()
     finally:
         dist.destroy_process_group()
 

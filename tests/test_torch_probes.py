@@ -383,11 +383,18 @@ def test_main_library_path_ignores_the_probe_sources(tmp_path, monkeypatch):
 def test_probe_library_units():
     """Every probe source but the toy kernel is a unit of the probe
     library, and the toy kernel is the toy library's one unit; only the
-    feature sections may fail."""
+    feature sections may fail.  The rank kernels' parts (rank_variants.cu,
+    which includes csrc/rank.cu) come last, and the library's hash covers
+    rank.cu."""
     spec = _build.LIBRARIES["probes"]()
     names = [u.name for u in spec.units]
     assert names[:2] == ["stages", "features_0"]
-    assert [u.optional for u in spec.units] == [False] * 2 + [True] * 6
+    assert names[-1] == "rank_variants"
+    assert [u.optional for u in spec.units] == \
+        [False] * 2 + [True] * 6 + [False]
+    assert _build.CSRC / "rank.cu" in spec.headers
+    assert {"rb2_rankvar_flat", "rb2_rankvar_pend", "rb2_rankpart_flat",
+            "rb2_rankpart_pend"} <= set(spec.units[-1].entry_points)
     (toy,) = _build.LIBRARIES["toy"]().units
     assert toy.source.name == "toy.cu" and not toy.optional
     assert set(toy.entry_points) == {"rb2_toy"}

@@ -2,15 +2,19 @@
 kernels (csrc/rank.cu).
 
 On the CPU a wrapper runs its plain version: each is held here to the JAX
-package's rank_global, rank_global_packed and pending_rank on the same
-numpy-seeded inputs (int32 and int64 prefixes, K 128 and 256; positions 0,
-n and every multiple of 128 +- 1; a pending index empty, half full, full,
-and queried at its INF rows).  The call sites of the engine, the queries
-and the sharded engine are held to reach the wrappers, so that on the card
-they take the kernels and not the plain count.
+package's rank_global, rank_global_packed, pending_rank and rank_virtual
+on the same numpy-seeded inputs (int32 and int64 prefixes, K 128 and 256;
+positions 0, n and every multiple of 128 +- 1; a pending index empty,
+half full, full, and queried at its INF rows, at its rows and next to
+them).  The call sites of the engine, the queries and the sharded engine
+are held to reach the wrappers, so that on the card they take the kernels
+and not the plain count: a deferred flat round ranks through
+rank_virtual_flat (one launch), a deferred packed round through
+pending_rank and rank_packed.
 
 The tests marked ``cuda`` hold each kernel to its plain version on the
-card at 2^16 queries, and skip without a card.  They import no JAX (the
+card at 2^16 queries (K 128 to 1024 for the flat and the virtual rank),
+and skip without a card.  They import no JAX (the
 CPU tests import it inside), so they run where JAX is not installed, with
 ``python -m pytest --noconftest -p no:cacheprovider -m cuda`` on this
 file.
@@ -77,8 +81,8 @@ def _pend(vp, psym, prefix, pfill, device="cpu"):
 @pytest.mark.parametrize("K", [128, 256])
 @pytest.mark.parametrize("wide", [False, True])
 def test_rank_flat_matches_jax(K, wide):
-    """rank_cuda.rank_flat == the JAX rank_global, with sub and extra too:
-    rank(pos - sub) + extra."""
+    """rank_cuda.rank_flat == the JAX rank_global, at positions in any
+    order and at the sorted positions the engine gives it."""
     import jax.numpy as jnp
     from ropebwt2_tpu.index import rank as jrank
 
@@ -96,14 +100,10 @@ def test_rank_flat_matches_jax(K, wide):
     assert got.dtype == dt
     assert np.array_equal(got.numpy(), np.asarray(want))
 
-    sub = rng.integers(0, 50, pos.shape[0]).clip(max=pos)
-    extra = rng.integers(0, 1000, (pos.shape[0], 6)).astype(np.int32)
-    got = rank_cuda.rank_flat(tb, tab, torch.from_numpy(pos), K,
-                              sub=torch.from_numpy(sub),
-                              extra=torch.from_numpy(extra))
-    want = np.asarray(jrank.rank_global(jb, jtab, jnp.asarray(pos - sub), K))
-    assert got.dtype == dt
-    assert np.array_equal(got.numpy(), want + extra)
+    pos = np.sort(pos)
+    got = rank_cuda.rank_flat(tb, tab, torch.from_numpy(pos), K)
+    want = jrank.rank_global(jb, jtab, jnp.asarray(pos), K)
+    assert np.array_equal(got.numpy(), np.asarray(want))
 
 
 @pytest.mark.parametrize("garbage", [False, True])
@@ -166,6 +166,68 @@ def test_pending_rank_matches_jax(fill):
     assert np.array_equal(occ.numpy(), np.asarray(jocc))
 
 
+def _virtual_case(rng, K, wide, fill, pcap=1 << 12):
+    """A flat base (n symbols, any byte past n) with its K-block table, a
+    pending index of pcap rows at ``fill`` over it, and queries in [0,
+    n_virtual]: 0, n_virtual, every live row's position and its
+    neighbours, the live range's end (the INF rows follow it), random."""
+    cap, n = 1 << 14, 12345
+    buf = _buffer(rng, cap, n)
+    pfill = {"empty": 0, "half": pcap // 2 + 77, "full": pcap}[fill]
+    vp = np.full(pcap, INF, np.int64)
+    vp[:pfill] = np.sort(rng.integers(0, n, pfill)) + np.arange(pfill)
+    psym = np.full(pcap, flat.PAD, np.int8)
+    psym[:pfill] = rng.integers(0, 6, pfill)
+    prefix = rank.prefix_rows(rank.block_counts(torch.from_numpy(psym), KP),
+                              torch.int32).numpy()
+    nv = n + pfill
+    live = vp[:pfill]
+    g = np.concatenate([[0, nv, nv - 1], live, live + 1, live - 1,
+                        live[-1:] + 2, rng.integers(0, nv + 1, 500)])
+    g = g[(g >= 0) & (g <= nv)].astype(np.int64)
+    dt = torch.int64 if wide else torch.int32
+    tab = rank.build_block_tables(torch.from_numpy(buf), K, dtype=dt)
+    return buf, tab, (vp, psym, prefix, pfill), g
+
+
+@pytest.mark.parametrize("fill", ["empty", "half", "full"])
+@pytest.mark.parametrize("K", [128, 256])
+@pytest.mark.parametrize("wide", [False, True])
+def test_rank_virtual_flat_matches_jax(fill, K, wide):
+    """rank_cuda.rank_virtual_flat == the JAX rank_virtual (the pending
+    count, then the flat rank at g - p, plus the pending counts) on an
+    empty, a half full and a full pending index; the clamped form ==
+    rank_global at clamp(g - p) plus the JAX pending counts."""
+    import jax.numpy as jnp
+    from ropebwt2_tpu.index import pending as jp
+    from ropebwt2_tpu.index import rank as jrank
+
+    rng = np.random.default_rng(70 + K + wide + len(fill))
+    buf, tab, (vp, psym, prefix, pfill), g = _virtual_case(rng, K, wide,
+                                                           fill)
+    pend = _pend(vp, psym, prefix, pfill)
+    got = rank_cuda.rank_virtual_flat(torch.from_numpy(buf), tab, pend,
+                                      torch.from_numpy(g), K)
+    jb = jnp.asarray(buf)
+    jtab = jrank.build_block_tables(
+        jb, K, dtype=jnp.int64 if wide else jnp.int32)
+    jpend = jp.PendingIndex(vp=jnp.asarray(vp), psym=jnp.asarray(psym),
+                            blk_prefix=jnp.asarray(prefix),
+                            p=jnp.asarray(pfill, jnp.int32))
+    want = np.asarray(jp.rank_virtual(jb, jtab, jpend, jnp.asarray(g), K))
+    assert got.dtype == tab.dtype
+    assert np.array_equal(got.numpy(), want)
+
+    lo, hi = 100, 9000
+    got = rank_cuda.rank_virtual_flat(torch.from_numpy(buf), tab, pend,
+                                      torch.from_numpy(g), K, lo=lo, hi=hi)
+    jpos, jocc = jp.pending_rank(jpend, jnp.asarray(g))
+    x = np.clip(g - np.asarray(jpos), lo, hi)
+    want = np.asarray(jrank.rank_global(jb, jtab, jnp.asarray(x), K)) \
+        + np.asarray(jocc)
+    assert np.array_equal(got.numpy(), want)
+
+
 def _counting(monkeypatch):
     """Count the calls of every wrapper and of every plain version (the
     wrappers reach the plain versions through their modules on the CPU)."""
@@ -180,11 +242,13 @@ def _counting(monkeypatch):
 
         monkeypatch.setattr(mod, name, counted)
 
-    for name in ("rank_flat", "rank_packed", "pending_rank"):
+    for name in ("rank_flat", "rank_packed", "pending_rank",
+                 "rank_virtual_flat"):
         wrap(rank_cuda, name, name)
     wrap(rank, "rank_global", "plain flat")
     wrap(packed, "rank_global_packed", "plain packed")
     wrap(pending, "pending_rank", "plain pending")
+    wrap(pending, "rank_virtual", "plain virtual")
     return calls
 
 
@@ -196,9 +260,12 @@ def _reads(seed, m):
 
 @pytest.mark.parametrize("tier", ["flat", "packed"])
 def test_engine_and_queries_reach_the_wrappers(tier, monkeypatch):
-    """_state_rank_fn (a batch merged every round), rank_virtual_base (a
-    deferred batch) and engine/query.py's _base_rank call the wrappers, and
-    the plain counts run only from inside them."""
+    """_state_rank_fn (a batch merged every round), the deferred rank and
+    engine/query.py's _base_rank call the wrappers, and the plain counts
+    run only from inside them.  A deferred round ranks through
+    rank_virtual_flat on the flat tier (one call a rank, never
+    pending_rank + rank_flat) and through pending_rank + rank_packed on
+    the packed tier."""
     from ropebwt2_tpu_torch.engine import TorchBwt, query
 
     calls = _counting(monkeypatch)
@@ -208,10 +275,20 @@ def test_engine_and_queries_reach_the_wrappers(tier, monkeypatch):
     e = TorchBwt(so=1, K=128, defer_r=0, device="cpu", **tiers)
     e.insert_multi(_reads(1, 64))  # defer_r 0: the base rank every round
     assert calls[wrapper] > 0 and "pending_rank" not in calls
+    assert "rank_virtual_flat" not in calls
+    before = dict(calls)
     eng = TorchBwt(so=1, K=128, defer_r=4, device="cpu", **tiers)
-    eng.insert_multi(_reads(2, 64))  # deferred: pending, then base
-    assert calls["pending_rank"] > 0
-    assert calls["pending_rank"] == calls["plain pending"]
+    eng.insert_multi(_reads(2, 64))  # deferred
+    if tier == "flat":
+        assert calls["rank_virtual_flat"] > 0
+        assert calls["rank_virtual_flat"] == calls["plain virtual"]
+        assert "pending_rank" not in calls
+        assert calls[wrapper] == before[wrapper]
+    else:
+        assert calls["pending_rank"] > 0
+        assert calls["pending_rank"] == calls["plain pending"]
+        assert calls[wrapper] > before[wrapper]
+        assert "rank_virtual_flat" not in calls
     n = calls[wrapper]
     query.rank1a(eng.state, [0, 5, 17])
     assert calls[wrapper] == n + 1
@@ -221,8 +298,8 @@ def test_engine_and_queries_reach_the_wrappers(tier, monkeypatch):
 @pytest.mark.parametrize("defer_r", [0, 4])
 def test_sharded_rank_functions_reach_the_wrappers(defer_r, monkeypatch):
     """Both routed rank functions of parallel/sharded.py (merged every
-    round; deferred: pending and base) call the wrappers, on a world of
-    one."""
+    round: rank_flat; deferred: rank_virtual_flat with the base clamped to
+    the rank's window) call the wrappers, on a world of one."""
     from ropebwt2_tpu_torch.engine import TorchBwt
     from ropebwt2_tpu_torch.parallel.sharded import ShardedTorchBwt
 
@@ -237,11 +314,11 @@ def test_sharded_rank_functions_reach_the_wrappers(defer_r, monkeypatch):
         assert np.array_equal(eng.bwt_array(), ref.bwt_array())
     finally:
         eng.mesh.close()
-    for key in (("rank_flat", "pending_rank") if defer_r else
-                ("rank_flat",)):
-        assert calls[key] > before.get(key, 0), key
-    assert calls["rank_flat"] == calls["plain flat"]
-    assert calls.get("pending_rank", 0) == calls.get("plain pending", 0)
+    key = "rank_virtual_flat" if defer_r else "rank_flat"
+    assert calls.get(key, 0) > before.get(key, 0), key
+    assert calls.get("rank_flat", 0) == calls.get("plain flat", 0)
+    assert calls.get("rank_virtual_flat", 0) == calls.get("plain virtual", 0)
+    assert "pending_rank" not in calls
 
 
 # ----------------------------------------------------------------- card
@@ -278,7 +355,7 @@ def _sub_extra(rng, pos, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("K", [128, 256])
+@pytest.mark.parametrize("K", [128, 256, 512, 1024])
 @pytest.mark.parametrize("wide", [False, True])
 def test_rank_flat_kernel_matches_plain(dev, K, wide):
     rng = np.random.default_rng(40 + K + wide)
@@ -293,10 +370,9 @@ def test_rank_flat_kernel_matches_plain(dev, K, wide):
     torch.cuda.synchronize()
     assert rank_cuda.LAUNCHES["rank_flat"] == before + 1
     assert got.dtype == want.dtype and torch.equal(got, want)
-    sub, extra = _sub_extra(rng, pos, dev)
-    got = rank_cuda.rank_flat(buf, tab, pos, K, sub=sub, extra=extra)
-    want = rank.rank_global(buf, tab, pos - sub, K) + extra.to(tab.dtype)
-    assert torch.equal(got, want)
+    pos = torch.sort(pos).values  # as the engine gives them
+    assert torch.equal(rank_cuda.rank_flat(buf, tab, pos, K),
+                       rank.rank_global(buf, tab, pos, K))
 
 
 @pytest.mark.cuda
@@ -346,6 +422,46 @@ def test_rank_pend_kernel_matches_plain(dev, fill):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("K", [128, 256, 512, 1024])
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("fill", ["empty", "half", "full"])
+def test_rank_virtual_kernel_matches_plain(dev, K, wide, fill):
+    """rank_virtual_kernel == pending.rank_virtual: unclamped at queries in
+    [0, n_virtual] and at the pending index's own edges, and clamped to a
+    window (the sharded engine's form) at positions -2^40..2^40."""
+    rng = np.random.default_rng(80 + K + wide + len(fill))
+    pcap = 1 << 20
+    pfill = {"empty": 0, "half": pcap // 2 + 77, "full": pcap}[fill]
+    cap, n = 1 << 22, (1 << 22) - 777
+    buf = torch.from_numpy(_buffer(rng, cap, n)).to(dev)
+    tab = rank.build_block_tables(buf, K, torch.int64 if wide
+                                  else torch.int32)
+    vp = np.full(pcap, INF, np.int64)
+    vp[:pfill] = np.sort(rng.integers(0, n, pfill)) + np.arange(pfill)
+    psym = np.full(pcap, flat.PAD, np.int8)
+    psym[:pfill] = rng.integers(0, 6, pfill)
+    prefix = rank.prefix_rows(rank.block_counts(torch.from_numpy(psym), KP),
+                              torch.int32).numpy()
+    pend = _pend(vp, psym, prefix, pfill, dev)
+    nv = n + pfill
+    live = vp[:pfill]
+    g = np.concatenate([[0, nv], live[:4096], live[-4096:] + 1,
+                        rng.integers(0, nv + 1, Q_CARD)])[:Q_CARD]
+    g = torch.from_numpy(g.astype(np.int64)).to(dev)
+    before = rank_cuda.LAUNCHES["rank_virtual"]
+    got = rank_cuda.rank_virtual_flat(buf, tab, pend, g, K)
+    want = pending.rank_virtual(buf, tab, pend, g, K)
+    torch.cuda.synchronize()
+    assert rank_cuda.LAUNCHES["rank_virtual"] == before + 1
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    g = _card_positions(rng, nv, buf.shape[0], dev)
+    lo, hi = 1000, n - 5000
+    got = rank_cuda.rank_virtual_flat(buf, tab, pend, g, K, lo=lo, hi=hi)
+    want = pending.rank_virtual(buf, tab, pend, g, K, lo=lo, hi=hi)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     buf = torch.full((1 << 12,), flat.PAD, dtype=torch.int8, device=dev)
     tab = rank.build_block_tables(buf, 128, torch.int32)
@@ -366,3 +482,14 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
                  dev)
     with pytest.raises(ValueError, match="g"):
         rank_cuda.pending_rank(pend, pos.cpu())
+    with pytest.raises(ValueError, match="K"):
+        rank_cuda.rank_virtual_flat(buf, tab, pend, pos, 96)
+    with pytest.raises(ValueError, match="clamp"):
+        rank_cuda.rank_virtual_flat(buf, tab, pend, pos, 128, lo=5, hi=4)
+    shifted_vp = torch.empty(pend.cap + 1, dtype=torch.int64, device=dev)
+    shifted_vp[1:] = pend.vp  # 8-byte aligned only
+    with pytest.raises(ValueError, match="aligned"):
+        rank_cuda.rank_virtual_flat(
+            buf, tab, PendingIndex(vp=shifted_vp[1:], psym=pend.psym,
+                                   blk_prefix=pend.blk_prefix, p=pend.p),
+            pos, 128)

@@ -109,8 +109,10 @@ def _port_case(c, d):
         eng.insert_multi(b)
         snaps.append(_snapshot(eng, chosen, lambda t: t.numpy()))
     off = np.concatenate([[0], np.cumsum(eng.state.psize.numpy())])
-    return {"snaps": snaps, "bwt": eng.bwt_array(),
-            "runs": eng.run_arrays(bounds=off)}
+    out = {"snaps": snaps, "bwt": eng.bwt_array(),
+           "runs": eng.run_arrays(bounds=off)}
+    mesh.close()  # the 2-D mesh's subgroups end here, the default group
+    return out    # with the rank (test_torch_comm._rank_main)
 
 
 def _ranks(rank, d, cases, out):
