@@ -56,21 +56,28 @@ Phases, each reported on its own line:
    2^24, pcap 2^16 half full, and the virtual rank over both); and at one
    rank's of the sharded engine at d = 4 (2^15 queries: flat lcap 2^26,
    pcap 2^21 a quarter full, and the virtual rank over both with g - p
-   clamped to [0, lcap]); each timed alone as a CUDA graph of its launch,
-   beside its plain version, its bound (bytes read once and written once
-   over 3.35 TB/s: positions, answers, the distinct prefix rows and
-   32-byte sectors of the rows below each position; probes/_timing.py)
-   and the earlier design's time (EARLIER_MS); the packed rank kernel is
-   held and timed in phase 6 on that phase's index.
+   clamped to [0, lcap]); the pending index at the run tier's shape
+   (phase 10: pcap 2^21 half full, 2^17 queries); the packed rank and the
+   packed tier's virtual rank (one launch) over synthetic packed buffers
+   (random symbols, PAD past n, two-level tables built on the card) at
+   cap 2,246,049,792 (n past 2^31; pcap 2^24 half full) and 147,849,216
+   (the packed sustained regime's; pcap 2^20 30% full), 2^20 sorted and
+   uniform queries, and the packed rank at phase 8's query shapes; each
+   timed alone as a CUDA graph of its launch, beside its plain version,
+   its bound (bytes read once and written once over 3.35 TB/s: positions,
+   answers, the distinct prefix rows and 32-byte sectors of the rows
+   below each position; probes/_timing.py) and the earlier design's time
+   (EARLIER_MS); the packed rank kernel is held and timed again in phase
+   6 on that phase's index.
    ``python3 chip_smoke.py --rank-variants`` runs phase 1 and this phase
    alone, with the earlier design's launches (probes/rank_variants.py:
    the flat kernel as it was, with K a constant and without the count;
-   the pending kernel; the deferred round's launches) and this design's
-   parts (the flat rank's loads without the count, the pending rank's
-   search alone and its count alone) timed in the same call, each held to
-   the plain version where it computes a rank, and each kernel's SASS
-   count with its issue-slot floor; it prints them as JSON and no result
-   line;
+   the packed kernel as it was; the pending kernel; each deferred round's
+   two launches) and this design's parts (the flat and the packed rank's
+   loads without the count, the pending rank's search alone and its count
+   alone) timed in the same call, each held to the plain version where it
+   computes a rank, and each kernel's SASS count with its issue-slot
+   floor; it prints them as JSON and no result line;
 4. small builds (4096 reads x 101 in 2 batches, so 0/1/2, defer_r 0/8):
    the card's BWT equals the CPU's byte for byte, and an LF walk from
    every sentinel spells back the multiset of the reads; the same builds
@@ -84,7 +91,9 @@ Phases, each reported on its own line:
    and on the sustained (deferred) path the virtual rank kernel, one
    launch a rank, and neither the flat nor the pending rank kernel.
    The sustained regime runs again on the packed tier (pack4=1), and its
-   BWT must equal the flat run's (by md5);
+   BWT must equal the flat run's (by md5); kernels B and C and the packed
+   virtual rank kernel must launch there, and neither the pending rank
+   kernel nor the flat tier's virtual kernel;
 6. the capacity tier at the size of scripts/scale_run.py's runs, built
    through the port's scripts/scale_run.py (TorchBwt.plan, batches,
    insert_batch, text_md5): coverage reads (seed 0, 47x, 1% errors) x 101,
@@ -97,7 +106,8 @@ Phases, each reported on its own line:
    boundary +-1, positions past 2^31); the packed rank kernel timed at
    2^20 sorted positions; an LF walk from 4096 sentinel rows spells reads
    of the input; the md5 of the BWT in scale_run.py's text encoding.  Kernels B
-   and C and the packed and pending rank kernels must launch;
+   and C and the packed virtual rank kernel must launch, and the pending
+   rank kernel must not;
 7. the probe suite (ropebwt2_tpu_torch/probes), the counterparts of the
    TPU probe scripts, in the order H (kernel A's cost per CTA against its
    bound), F (the merge wrapper's steps), E (kernel A's stages looped
@@ -116,7 +126,8 @@ Phases, each reported on its own line:
    Mq/s, M ext/s and M sym-steps/s; rank at 4096 sorted positions against
    numpy counts over the host copy of the BWT, backward_search of 4096
    substrings of the reads (each found, each equal to chained extends), and
-   the two tiers' answers equal;
+   the two tiers' answers equal; each tier's timed stages are a path whose
+   rank kernel (flat, packed) must launch;
 9. the CLI end to end: 2^20 coverage reads x 101 (seed 0, 47x, 1% errors)
    as gzip FASTQ through ``python -m ropebwt2_tpu_torch.cli -s -d`` in a
    child process (both strands, the default -m: one batch of ~214 M
@@ -175,7 +186,8 @@ Phases, each reported on its own line:
 
 Launches are counted per path: each path (the batch and the sustained
 regime of phase 5, flat and packed, the capacity build of phase 6, the
-probe suite of phase 7, the CLI's run in this process of phase 9, the run
+probe suite of phase 7, each tier's query stages in phase 8, the CLI's
+run in this process of phase 9, the run
 tier's timed batches of phase 10, the deep-coverage build of phase 11,
 each long-read build of phase 12, the sharded engine's timed batches and
 its batch merged every round in phase 13; phase 14's children count their
@@ -348,7 +360,12 @@ PEND_SHARDED = (SHARD_PCAP, M_BENCH, SHARD_LCAP + SHARD_PCAP, 0.25,
 # reads on the flat tier (4096 queries a call, cap 2^24, pcap 2^16 half
 # full); one rank of the sharded engine at d = 4 (phase 13: 2^15 routed
 # queries, lcap 2^26, pcap 2^21 a quarter full), whose deferred rank clamps
-# the base position to [0, lcap]; the packed rank on phase 6's index
+# the base position to [0, lcap]; the run tier's pending rank on phase 10's
+# sustained reads (pcap 2^21 half full, M_BENCH queries); the packed rank
+# and the packed tier's deferred rank (one launch) over synthetic packed
+# buffers at the capacity path's cap (n past 2^31, pcap 2^24 half full)
+# and the packed sustained regime's (pcap 2^20 30% full), and the packed
+# rank at phase 8's query shapes; the packed rank again on phase 6's index
 RANK_Q = 1 << 20
 LONG_Q = 1 << 12  # phase 12's lanes: a long-read round ranks 4096 queries
 RANK_FLAT = (  # name, cap, int64 tables, sorted positions, queries
@@ -366,12 +383,28 @@ RANK_PEND = (  # name, pcap, max vp, share full, queries
     ("sustained", 1 << 20, CAP_FLUSH, 0.3, RANK_Q),
     ("long", 1 << 16, LONG_N, 0.5, LONG_Q),
     ("sharded", SHARD_PCAP, SHARD_LCAP + SHARD_PCAP, 0.25, SHARD_ROUTED),
+    ("runs", PEND_RUNS[0], PEND_RUNS[2], PEND_RUNS[3], M_BENCH),
 )
 RANK_VIRTUAL = (  # name, flat base (RANK_FLAT), pending index (RANK_PEND),
     # the clamp of g - p (None: none; the queries in [0, n + pending])
     ("sustained", "sustained", "sustained", None),
     ("long", "long", "long", None),
     ("sharded", "sharded", "sharded", (0, SHARD_LCAP)),
+)
+RANK_PACKED = (  # name, cap, sorted positions, queries
+    ("capacity", CAP_SCALE, True, RANK_Q),
+    ("capacity uniform", CAP_SCALE, False, RANK_Q),
+    ("sustained", CAP_PACKED, True, RANK_Q),
+    ("sustained uniform", CAP_PACKED, False, RANK_Q),
+    ("queries rank", CAP_PACKED, True, 1 << 18),
+    ("queries search", CAP_PACKED, False, 1 << 16),
+)
+RANK_VIRTUAL_PACKED = (  # name, packed cap, pending index (RANK_PEND),
+    # sorted queries (in [0, n + pending])
+    ("capacity", CAP_SCALE, "capacity", True),
+    ("capacity uniform", CAP_SCALE, "capacity", False),
+    ("sustained", CAP_PACKED, "sustained", True),
+    ("sustained uniform", CAP_PACKED, "sustained", False),
 )
 # kernel ms of the kernels that the present designs replaced, from this
 # script (the merge wrapper's: probe F, whole wrapper on the device; the
@@ -400,6 +433,22 @@ EARLIER_MS = {
     # engine)
     ("rank_virtual", "sustained"): 0.2167, ("rank_virtual", "long"): 0.0112,
     ("rank_virtual", "sharded"): 0.0183,
+    ("rank_pend", "runs"): 0.0162,
+    # the packed rank as PR 11 wrote it (8 threads a query), and the packed
+    # tier's earlier deferred rank: the pending kernel, then that kernel at
+    # g - p plus the pending counts; phase 6's from the full run before
+    # the redesign
+    ("rank_packed", "capacity"): 0.1202,
+    ("rank_packed", "capacity uniform"): 0.1329,
+    ("rank_packed", "sustained"): 0.1089,
+    ("rank_packed", "sustained uniform"): 0.1199,
+    ("rank_packed", "queries rank"): 0.0312,
+    ("rank_packed", "queries search"): 0.0088,
+    ("rank_packed", "phase 6"): 0.1154,
+    ("rank_virtual_packed", "capacity"): 0.2069,
+    ("rank_virtual_packed", "capacity uniform"): 0.4012,
+    ("rank_virtual_packed", "sustained"): 0.1652,
+    ("rank_virtual_packed", "sustained uniform"): 0.2860,
 }
 
 
@@ -503,6 +552,17 @@ def deferred_flat(tag, counts):
     if counts["rank_virtual"] == 0 or counts["rank_pend"] != 0:
         raise AssertionError(f"{tag} the deferred flat rank did not go "
                              f"through rank_virtual alone: {counts}")
+
+
+def deferred_packed(tag, counts):
+    """A deferred path on the packed tier ranks through the packed virtual
+    rank kernel, one launch a rank: it must launch, and neither the
+    pending rank kernel (the first of the earlier two launches) nor the
+    flat tier's virtual kernel may."""
+    if counts["rank_virtual_packed"] == 0 or counts["rank_pend"] != 0 \
+            or counts["rank_virtual"] != 0:
+        raise AssertionError(f"{tag} the deferred packed rank did not go "
+                             f"through rank_virtual_packed alone: {counts}")
 
 
 # ---------------------------------------------------------------- phase 2
@@ -971,19 +1031,50 @@ def rank_pend_input(torch, gen, pcap, nmax, frac, q):
     return pi, g
 
 
+def bound_label(ctas):
+    """The name of a packed kernel variant under other launch bounds."""
+    return ("this design under __launch_bounds__(64) alone" if ctas == 0
+            else f"this design for {ctas} CTAs an SM")
+
+
+def rank_packed_input(torch, gen, cap):
+    """(pbwt, blkA, blkB, n): a packed buffer of cap symbols (random
+    symbols below n, PAD past it and in the tail rows, as the engine keeps
+    it) and its two-level tables, built on the card."""
+    from ropebwt2_tpu_torch.index.flat import PAD
+    from ropebwt2_tpu_torch.index.packed import (
+        PPAD_ROWS, build_two_level_tables, pack_bwt,
+    )
+
+    n = cap - 12345
+    sym = torch.full((cap + PPAD_ROWS * 256,), PAD, dtype=torch.int8,
+                     device=DEV)
+    for lo in range(0, n, 1 << 30):  # in chunks below 2^31 elements
+        hi = min(n, lo + (1 << 30))
+        sym[lo:hi] = torch.randint(0, 6, (hi - lo,), generator=gen,
+                                   device=DEV, dtype=torch.int8)
+    pb = pack_bwt(sym)
+    del sym
+    return (pb, *build_two_level_tables(pb, cap), n)
+
+
 def phase_rank(torch, variants=False):
     """The rank kernels against their plain versions at RANK_FLAT's,
-    RANK_PEND's and RANK_VIRTUAL's shapes, each beside the earlier
-    design's time (EARLIER_MS).  With ``variants`` (--rank-variants), also
-    the earlier design's launches (probes/rank_variants.py) timed in the
-    same call: the flat rank as it was, with K a constant and without the
-    count; the pending rank; the deferred round's launches that the
-    virtual rank replaces; and this design's parts: the flat rank's loads
-    without the count, the pending rank's search alone and its count
-    alone."""
+    RANK_PEND's, RANK_VIRTUAL's, RANK_PACKED's and RANK_VIRTUAL_PACKED's
+    shapes, each beside the earlier design's time (EARLIER_MS).  With
+    ``variants`` (--rank-variants), also the earlier design's launches
+    (probes/rank_variants.py) timed in the same call: the flat rank as it
+    was, with K a constant and without the count; the packed rank as it
+    was; the pending rank; the deferred round's launches that each virtual
+    rank replaces; this design's parts: the flat and the packed rank's
+    loads without the count, the pending rank's search alone and its
+    count alone; and the packed kernels under other launch bounds."""
     from ropebwt2_tpu_torch.index import rank_cuda
     from ropebwt2_tpu_torch.index.flat import PAD_TAIL
-    from ropebwt2_tpu_torch.index.pending import pending_rank, rank_virtual
+    from ropebwt2_tpu_torch.index.packed import rank_global_packed
+    from ropebwt2_tpu_torch.index.pending import (
+        pending_rank, rank_virtual, rank_virtual_packed,
+    )
     from ropebwt2_tpu_torch.index.rank import rank_global
     from ropebwt2_tpu_torch.probes import _timing, rank_variants as var
 
@@ -1031,7 +1122,8 @@ def phase_rank(torch, variants=False):
             {"searchsorted_ms": time_ms(lambda: torch.searchsorted(pi.vp, g))},
             earlier_ms=EARLIER_MS.get(("rank_pend", name)),
             variants=runs if variants else ())
-        if any(name == pn for _, _, pn, _ in RANK_VIRTUAL):
+        if any(name == pn for _, _, pn, _ in RANK_VIRTUAL
+               + RANK_VIRTUAL_PACKED):
             pends[name] = (pi, g, pcap, frac)
         del p
         torch.cuda.empty_cache()
@@ -1073,9 +1165,69 @@ def phase_rank(torch, variants=False):
             variants=[("earlier launches", earlier_launches, True)]
             if variants else ())
         del pv, x
-    del bases, pends
+    del bases
     torch.cuda.empty_cache()
-    return {"rank_flat": flat, "rank_pend": pend, "rank_virtual": virt}
+
+    pk, vpk = {}, {}
+    pbases = {cap: rank_packed_input(torch, gen, cap)
+              for cap in dict.fromkeys(c for _, c, _, _ in RANK_PACKED)}
+    for name, cap, ordered, q in RANK_PACKED:
+        pb, blkA, blkB, n = pbases[cap]
+        pos = torch.randint(0, n + 1, (q,), generator=gen, device=DEV)
+        if ordered:
+            pos = torch.sort(pos).values
+        runs = [("earlier", lambda: var.packed(pb, blkA, blkB, pos), True),
+                ("this design's loads without the count",
+                 lambda: var.part_packed(pb, blkA, blkB, pos), False)]
+        if name in ("capacity", "sustained"):
+            runs += [(bound_label(c),
+                      lambda c=c: var.bound_packed(c, pb, blkA, blkB, pos),
+                      True) for c in var.BOUND_CTAS]
+        pk[name] = rank_case(
+            torch, f"packed {name}: cap {cap}, n {n}, {q} "
+                   f"{'sorted' if ordered else 'uniform'} positions",
+            lambda: rank_cuda.rank_packed(pb, blkA, blkB, pos),
+            lambda: rank_global_packed(pb, blkA, blkB, pos),
+            _timing.rank_packed_bytes(pos, blkB.shape[0] // 2 - 1),
+            earlier_ms=EARLIER_MS.get(("rank_packed", name)),
+            variants=runs if variants else ())
+        del pos
+    for name, cap, pname, ordered in RANK_VIRTUAL_PACKED:
+        pb, blkA, blkB, n = pbases[cap]
+        pi, g, pcap, frac = pends[pname]
+        # the engine's queries: [0, n + pending]
+        gv = g.clamp(max=n + int(pcap * frac))
+        if not ordered:
+            gv = gv[torch.randperm(gv.shape[0], generator=gen, device=DEV)]
+        pv, _ = pending_rank(pi, gv)
+        nb = _timing.rank_virtual_packed_bytes(gv, pv, gv - pv,
+                                               blkB.shape[0] // 2 - 1)
+
+        def earlier_launches(gv=gv):
+            # the earlier deferred rank: the pending kernel, then the
+            # earlier packed kernel at g - p plus the pending counts
+            p0, e = rank_cuda.pending_rank(pi, gv)
+            return var.packed(pb, blkA, blkB, gv, p0, e)
+
+        runs = [("earlier launches", earlier_launches, True)]
+        if name in ("capacity", "sustained"):
+            runs += [(bound_label(c), lambda c=c: var.bound_virtual_packed(
+                c, pb, blkA, blkB, pi, gv), True) for c in var.BOUND_CTAS]
+        vpk[name] = rank_case(
+            torch, f"virtual packed {name} (one launch: the pending search "
+                   f"and count and the packed count at g - p): cap {cap}, "
+                   f"n {n}, pcap {pcap} {int(100 * frac)}% full, "
+                   f"{gv.shape[0]} {'sorted' if ordered else 'uniform'} "
+                   f"queries",
+            lambda: rank_cuda.rank_virtual_packed(pb, blkA, blkB, pi, gv),
+            lambda: rank_virtual_packed(pb, blkA, blkB, pi, gv), nb,
+            earlier_ms=EARLIER_MS.get(("rank_virtual_packed", name)),
+            variants=runs if variants else ())
+        del pv, gv
+    del pbases, pends
+    torch.cuda.empty_cache()
+    return {"rank_flat": flat, "rank_pend": pend, "rank_virtual": virt,
+            "rank_packed": pk, "rank_virtual_packed": vpk}
 
 
 def rank_issue(torch):
@@ -1103,8 +1255,10 @@ def rank_issue(torch):
     for kernel, qpw in (  # queries a warp
             ("rank_flat_kernelIiLi1E", 32), ("rank_flat_kernelIlLi1E", 32),
             ("rank_pend_kernel", 32), ("rank_virtual_kernelIiLi1E", 32),
+            ("rank_packed_kernel", 32), ("rank_virtual_packed_kernel", 32),
             ("rankvar_flat_kernelIiLi0E", 4), ("rankvar_flat_kernelIiLi1E", 4),
-            ("rankvar_flat_kernelIiLi2E", 4), ("rankvar_pend_kernel", 32)):
+            ("rankvar_flat_kernelIiLi2E", 4), ("rankvar_packed_kernel", 4),
+            ("rankvar_pend_kernel", 32)):
         if kernel in sass:
             floor = var.issue_floor_ms(sass[kernel], RANK_Q // qpw, sms,
                                        clock)
@@ -1186,7 +1340,8 @@ def report_profile(label, wall, rows, top=12, tag="[5]"):
             f"{calls:7d}x {name[:90]}")
     for kernel in ("merge_kernel", "pending_kernel", "merge_packed_kernel",
                    "rank_flat_kernel", "rank_packed_kernel",
-                   "rank_pend_kernel", "rank_virtual_kernel"):
+                   "rank_pend_kernel", "rank_virtual_kernel",
+                   "rank_virtual_packed_kernel"):
         for name, us, calls in rows:  # the hand-written kernels, wherever
             if kernel in name:        # they rank
                 say(f"{tag}   {kernel}: {us / 1e3:.3f} ms, "
@@ -1203,7 +1358,8 @@ KINDS = (  # kind of a profiled kernel, by the first match in its name
     ("kernels A, B, C", ("merge_kernel", "pending_kernel",
                          "merge_packed_kernel")),
     ("rank kernels", ("rank_flat_kernel", "rank_packed_kernel",
-                      "rank_pend_kernel", "rank_virtual_kernel")),
+                      "rank_pend_kernel", "rank_virtual_kernel",
+                      "rank_virtual_packed_kernel")),
     ("searchsorted", ("searchsorted",)),
     ("bucket sort", ("sort", "radix", "Sort")),
     ("scans", ("scan", "cumsum", "cummax", "cummin", "Scan")),
@@ -1326,11 +1482,9 @@ def phase_main(torch):
         f"encoding): {packed_md5 == flat_md5} ({packed_md5}, {flat_md5})")
     if packed_md5 != flat_md5:
         raise AssertionError("the packed tier's BWT differs from the flat's")
-    if any(p_launches[k] == 0 for k in ("merge_packed", "pending_merge",
-                                         "rank_packed", "rank_pend")) \
-            or p_launches["rank_virtual"] != 0:
-        raise AssertionError(f"a kernel never launched (or the flat tier's "
-                             f"ran on the packed): {p_launches}")
+    if any(p_launches[k] == 0 for k in ("merge_packed", "pending_merge")):
+        raise AssertionError(f"a kernel never launched: {p_launches}")
+    deferred_packed("[5] packed sustained:", p_launches)
     if batch_launches["merge"] == 0 or batch_launches["rank_flat"] == 0:
         raise AssertionError(f"a kernel never launched: {batch_launches}")
     return {"batch": (batch_launches, 1), "sustained": (launches, SUSTAIN),
@@ -1474,13 +1628,13 @@ def phase_capacity(torch, ReadGen):
         f"{rank_err} (tolerance 0)")
     qpos = torch.sort(torch.randint(0, n + 1, (RANK_Q,), generator=g,
                                     device=DEV)).values
-    rank_res = {"capacity": rank_case(
+    rank_res = {"phase 6": rank_case(
         torch, f"packed capacity (phase 6's index): cap {st.cap}, n {n}, "
                f"{RANK_Q} sorted positions", lambda: rank_cuda.rank_packed(
                    st.pbwt, st.blkA, st.blkB, qpos),
         lambda: rank_global_packed(st.pbwt, st.blkA, st.blkB, qpos),
         _timing.rank_packed_bytes(qpos, st.blkB.shape[0] // 2 - 1),
-        tag="[6]")}
+        tag="[6]", earlier_ms=EARLIER_MS.get(("rank_packed", "phase 6")))}
     del qpos
 
     # LF walks from sentinel rows spell reads of the input
@@ -1506,9 +1660,9 @@ def phase_capacity(torch, ReadGen):
     torch.cuda.empty_cache()
     if n <= 1 << 31 or rank_err != 0 or not shaped or found != SCALE_WALKS:
         raise AssertionError("the capacity phase failed its checks")
-    if any(launches[k] == 0 for k in ("merge_packed", "pending_merge",
-                                       "rank_packed", "rank_pend")):
+    if any(launches[k] == 0 for k in ("merge_packed", "pending_merge")):
         raise AssertionError(f"a kernel never launched: {launches}")
+    deferred_packed("[6] capacity:", launches)
     return {"capacity": (launches, nbatch)}, rank_res
 
 
@@ -1603,7 +1757,9 @@ def phase_queries(torch, kept, smi):
     stage_bsearch over engine/query.py) on the flat and the packed index
     of phase 5's sustained regime; rank held against numpy counts over the
     host copy of the BWT, backward search against chained extends, the
-    tiers against each other."""
+    tiers against each other.  Each tier's three timed stages are a path
+    whose launches are read (its rank kernel must launch); returns
+    {path: (launches, 1)}."""
     from ropebwt2_tpu_torch import bench
     from ropebwt2_tpu_torch.engine import query
 
@@ -1612,24 +1768,29 @@ def phase_queries(torch, kept, smi):
     if (iters, Qb, plen) != (bench.ITERS, Q // 4, bench.PLEN):
         raise AssertionError("phase 8's workloads are not the bench's")
     reads = kept["reads"]
-    out, answers = {}, {}
+    answers, paths = {}, {}
     for tier in ("flat", "packed"):
         host, n = kept[tier]
         st = type(host)(**{k: v.to(DEV) for k, v in vars(host).items()})
         qpos, starts, pats = bench.query_inputs(np.random.default_rng(1), n,
                                                 Q)
+        reset_launches()  # the query path: the three timed stages
         ranks, r_s = bench.stage_rank(st, n, qpos, DEV)
         exts, e_s = bench.stage_extend(st, n, starts, DEV)
         (blo, bhi), b_s = bench.stage_bsearch(st, pats, DEV)
+        launches = read_launches()
+        paths[f"queries_{tier}"] = (launches, 1)
+        if launches[f"rank_{tier}"] == 0:
+            raise AssertionError(f"[8] the {tier} queries did not launch "
+                                 f"rank_{tier}: {launched(launches)}")
         r_rate, e_rate, b_rate = Q * iters / r_s, Q * iters / e_s, \
             Qb * plen / b_s
         say(f"[8] {tier} index, n {n}: rank {r_rate / 1e6:.3f} Mq/s "
             f"({Q} positions x {iters} chained steps, best {r_s:.4f} s); "
             f"extend {e_rate / 1e6:.3f} M ext/s ({Q} bi-intervals x {iters} "
             f"steps, best {e_s:.4f} s); backward_search {b_rate / 1e6:.3f} M "
-            f"sym-steps/s ({Qb} patterns x {plen}, best {b_s:.4f} s); {smi}")
-        out[tier] = {"rank_mqs": r_rate / 1e6, "extend_mexts": e_rate / 1e6,
-                     "bsearch_msyms": b_rate / 1e6}
+            f"sym-steps/s ({Qb} patterns x {plen}, best {b_s:.4f} s); "
+            f"launches {launched(launches)}; {smi}")
 
         # the checks
         cpos = np.sort(np.random.default_rng(8).integers(0, n + 1,
@@ -1666,7 +1827,7 @@ def phase_queries(torch, kept, smi):
         f"extend chains, backward_search intervals, sampled ranks): {same}")
     if not same:
         raise AssertionError("the flat and packed queries disagree")
-    return out
+    return paths
 
 
 def unpack_rows(pbwt, n):
@@ -2557,16 +2718,18 @@ def kernel_table(merge_res, packed_res, pend_res, rank_res, paths, probes):
             first, shapes=shapes(res), by_path=path_rows,
             launches_by_path={p: c[name] for p, (c, _) in paths.items()}))
     # the rank kernels: launches from the path that runs them most (the
-    # batch regime merges every round; the deferred flat paths rank through
-    # the virtual kernel; the packed and run tiers through the pending one)
+    # batch regime merges every round; the deferred flat and packed paths
+    # rank through their virtual kernels, the run tier through the pending
+    # one; the packed rank runs on the packed index's queries)
     for name, replaces, headline, case in (
         ("rank_flat", "ropebwt2_tpu/index/rank.py:38", "batch", "sustained"),
-        ("rank_pend", "ropebwt2_tpu/index/pending.py:188", "capacity",
-         "capacity"),
+        ("rank_pend", "ropebwt2_tpu/index/pending.py:188", "runs", "runs"),
         ("rank_virtual", "ropebwt2_tpu/index/pending.py:289", "sustained",
          "sustained"),
-        ("rank_packed", "ropebwt2_tpu/index/packed.py:244", "capacity",
-         "capacity"),
+        ("rank_packed", "ropebwt2_tpu/index/packed.py:244",
+         "queries_packed", "queries rank"),
+        ("rank_virtual_packed", "ropebwt2_tpu/index/pending.py:297",
+         "capacity", "capacity"),
     ):
         res = rank_res[name]
         main.append(entry(
@@ -2599,6 +2762,28 @@ def kernel_table(merge_res, packed_res, pend_res, rank_res, paths, probes):
             k, "probes/features.cu", "scripts/probe_kfeat_tpu.py:25",
             probes["launches"][k], probes["errs"][k], r))
     return main + probes_out
+
+
+def kernel_name(mangled):
+    """A kernel's name and template arguments from its mangled symbol:
+    the length-prefixed name that ends in "kernel" (the whole symbol if
+    none does)."""
+    for i in range(len(mangled)):
+        j = i
+        while j < len(mangled) and mangled[j].isdigit():
+            j += 1
+        if j > i and j < len(mangled):
+            name = mangled[j:j + int(mangled[i:j])]
+            if name.endswith("kernel"):
+                rest = mangled[j + len(name):]
+                depth, k = 0, 0  # the template arguments, I ... E
+                while rest.startswith("I") and k < len(rest):
+                    depth += {"I": 1, "E": -1}.get(rest[k], 0)
+                    k += 1
+                    if depth == 0:
+                        break
+                return name + rest[:k]
+    return mangled
 
 
 def main():
@@ -2635,9 +2820,13 @@ def main():
     for lib in ("main", "probes"):
         log = _build.library_path(lib).with_suffix(".log")
         if log.exists():
+            kernel = ""  # the entry function that ptxas reports on
             for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    say(f"[1] ptxas ({lib}): {line.strip()}")
+                if "Compiling entry function" in line:
+                    kernel = kernel_name(line.split("'")[1])
+                elif "registers" in line or "spill" in line:
+                    say(f"[1] ptxas ({lib}) {kernel}: "
+                        f"{line.split('ptxas info    :')[-1].strip()}")
     for unit, status in _build.unit_status("probes").items():
         if status != "ok":
             say(f"[1] probe unit {unit} did not compile (reported in phase "
@@ -2671,12 +2860,12 @@ def main():
     rank_res = timed("3r", phase_rank, torch)
     timed("4", phase_small, torch, ReadGen)
     paths, kept = timed("5", phase_main, torch)
-    cap_paths, rank_res["rank_packed"] = timed("6", phase_capacity, torch,
-                                               ReadGen)
+    cap_paths, cap_rank = timed("6", phase_capacity, torch, ReadGen)
     paths.update(cap_paths)
+    rank_res["rank_packed"].update(cap_rank)
     probes, probe_launches = phase_probes(torch)
     probes["launches"] = probe_launches
-    timed("8", phase_queries, torch, kept, smi)
+    paths.update(timed("8", phase_queries, torch, kept, smi))
     cli_paths, _ = timed("9", phase_cli, torch, ReadGen, smi)
     paths.update(cli_paths)
     paths.update(timed("10", phase_runs, torch, ReadGen, kept["md5"], smi))

@@ -56,15 +56,18 @@ ENTRY_POINTS = {
     "rb2_pending_merge": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # bwt, prefix, pos, out, Q, K, nprefix, nrows, wide, stream
     "rb2_rank_flat": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # pbwt, blkA, blkB, pos, sub, extra, out, Q, nprows, nrp, nanchor,
-    # stream
-    "rb2_rank_packed": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # pbwt, blkA, blkB, pos, out, Q, nprows, nrp, nanchor, stream
+    "rb2_rank_packed": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # vp, psym, prefix, g, p, occ, Q, pcap, stream
     "rb2_rank_pend": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     # bwt, prefix, vp, psym, pprefix, g, out, Q, K, nprefix, nrows, pcap,
     # lo, hi, wide, stream
     "rb2_rank_virtual": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _I, _I, _P],
+    # pbwt, blkA, blkB, vp, psym, pprefix, g, out, Q, nprows, nrp,
+    # nanchor, pcap, stream
+    "rb2_rank_virtual_packed": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                _I, _I, _P],
 }
 # the Hopper feature probes of csrc/probes/features.cu, one unit each
 # (-DRB2_FEATURE=<index>); section 0, the two plain stagings, is required
@@ -124,11 +127,22 @@ def _probe_library() -> Library:
                              _P],
         # vp, psym, prefix, g, p, occ, Q, pcap, stream
         "rb2_rankvar_pend": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+        # pbwt, blkA, blkB, pos, sub, extra, out, Q, nprows, nrp,
+        # nanchor, stream
+        "rb2_rankvar_packed": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _P],
         # csrc/rank.cu's kernels by part: bwt, prefix, pos, out, Q,
         # nprefix, nrows, stream; count, vp, psym, prefix, g, p, occ, Q,
-        # pcap, stream
+        # pcap, stream; pbwt, blkA, blkB, pos, out, Q, nprows, nrp,
+        # nanchor, stream
         "rb2_rankpart_flat": [_P, _P, _P, _P, _I, _I, _I, _P],
         "rb2_rankpart_pend": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+        "rb2_rankpart_packed": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # csrc/rank.cu's packed kernels under other launch bounds: ctas,
+        # then rb2_rank_packed's and rb2_rank_virtual_packed's arguments
+        "rb2_rankbound_packed": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "rb2_rankbound_virtual_packed": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                         _I, _I, _I, _I, _I, _P],
     }
     feat = PROBE_SRC / "features.cu"
     units = [

@@ -6,7 +6,8 @@
 // Replaces: no Pallas kernel.  The plain versions are the JAX package's
 // XLA code (ropebwt2_tpu/index/rank.py rank_global,
 // ropebwt2_tpu/index/packed.py rank_global_packed,
-// ropebwt2_tpu/index/pending.py pending_rank and rank_virtual): a (Q, 128)
+// ropebwt2_tpu/index/pending.py pending_rank, rank_virtual and
+// rank_virtual_base over rank_global_packed): a (Q, 128)
 // row gather, a (Q, 128) mask, a (Q, 128, 6) compare, an `&` and a sum
 // over 128, each a pass over device memory.
 //
@@ -16,32 +17,38 @@
 //   with blk = floor(x / K), within = x - blk K, x = pos[q]; the prefix
 //   and the row clamped to their tables;
 // - rank_packed:  the same over the nibble plane of symbol row blk (byte j
-//   of packed row blk >> 1, shifted by 4 (blk & 1)), with the base
-//   blkA[x >> 24] + blkB[blkb_row(blk)], int64, at x = pos[q] - sub[q]
-//   plus extra[q] when given (the packed tier's deferred rank: the base
-//   at g - p plus the pending counts, after the pending kernel);
+//   of packed row blk >> 1, shifted by 4 (blk & 1)), blk clamped to [0,
+//   2 nprows + 1], with the base blkA[x >> 24] + blkB[blkb_row(blk)],
+//   int64;
 // - rank_pend:    p[q] = |{ i : vp[i] < g[q] }| (vp ascending), then
 //   occ[q, s] = prefix[jb] + the count of s among psym rows [jb 128, p),
 //   jb = max(p - 1, 0) >> 7, int32;
 // - rank_virtual: rank_flat at x = clamp(g - p, lo, hi) plus rank_pend's
 //   occ at g, in the flat prefix's type: a deferred round's rank in one
-//   launch, with nothing between the two counts in device memory.
+//   launch, with nothing between the two counts in device memory;
+// - rank_virtual_packed: rank_packed at x = g - p plus rank_pend's occ at
+//   g, int64: the packed tier's deferred rank in one launch.
 //
 // What bounds it on the card.  A flat query needs its 8-byte position,
 // the row bytes below `within` (64 on average at K = 128), a 6-entry
 // prefix row and its 6-entry answer: ~110 B, 33 us for 2^20 queries at
-// 3.35 TB/s.  A pending query needs the vp rows next to its answer, the
-// psym bytes below it in their row and a prefix row.  The earlier design
-// (8 threads a query, a runtime 64-bit floor division in every thread, a
-// 12-shuffle group sum; a lower bound over all of vp, one dependent load
-// a level) was bound by issue slots: its flat kernel issued about as many
-// instructions as the card can in the time it took.  This design issues
-// a quarter as many a query; what bounds it now are its dependent loads:
-// the flat rank's row loads alone take nearly all of its time, and the
-// pending rank's search (a chain of dependent loads) and its count (the
-// instructions) take about as long apart as together.  Both were measured
-// by parts (csrc/probes/rank_variants.cu, run on request by
-// `chip_smoke.py --rank-variants`); PERF.md has the times.
+// 3.35 TB/s.  A packed query reads the same row bytes and two base rows
+// (int64 and int32) and writes an int64 answer.  A pending query needs
+// the vp rows next to its answer, the psym bytes below it in their row
+// and a prefix row.  The earlier design (8 threads a query, a runtime
+// 64-bit floor division in every thread, a 12-shuffle group sum; a lower
+// bound over all of vp, one dependent load a level; kept in
+// csrc/probes/rank_variants.cu) was bound by issue slots: its flat kernel
+// issued about as many instructions as the card can in the time it took,
+// its packed kernel two thirds as many.  This design issues a quarter as
+// many a query; what bounds it now are its dependent loads: the flat and
+// the packed rank's row loads alone take nearly all of their time (at
+// the packed tier's capacity each sorted query reads its own sectors of
+// a 1.1 GB buffer and of a 421 MB blkB table), and the pending rank's
+// search (a chain of dependent loads) and its count (the instructions)
+// take about as long apart as together.  All were measured by parts
+// (csrc/probes/rank_variants.cu, run on request by `chip_smoke.py
+// --rank-variants`); PERF.md has the times.
 //
 // What the design does about it:
 // - No 64-bit division: K = 128 KB is a template constant (KB 1..8), so
@@ -58,15 +65,24 @@
 //   `within`, becomes 7; the 16 bytes fold into three bit planes, and a
 //   symbol's 16 match flags are one logic operation and a __popc,
 //   accumulated in 16-bit fields (a K-row holds up to 1024 of a symbol).
+//   A packed chunk is first read in its query's nibble plane (a shift and
+//   a mask a word), and a nibble 6..15 (PAD, or any nibble past n)
+//   becomes 7 like a byte that is no symbol.
 // - The pending search runs in two levels that the caches serve: a lower
 //   bound over the blocks' last rows (vp[128 j + 127], one 32-byte sector
 //   a block: 4 MB at pcap 2^24, which stays in the 50 MB L2; its upper
 //   levels are shared in L1 by a CTA's sorted queries) with a trip count
 //   that depends on the capacity alone, then the block's 7 line ends
 //   loaded together, then the 16 rows of one line loaded together.
-// - rank_virtual: one search a thread (query `lane` of its warp); the
-//   pair then loads the pending rows and the flat rows of its two queries
-//   together and counts them; p and g - p stay in registers.
+// - rank_virtual and rank_virtual_packed: one search a thread (query
+//   `lane` of its warp); the pair then loads the pending rows and the
+//   flat or packed rows of its two queries together and counts them; p
+//   and g - p stay in registers.
+// - rank_packed: the flat design at K = 128 over the packed row, with the
+//   packed tier's positions and rows in 64 bits (n past 2^31) and both
+//   divisions (by 128 and by the 2^24 symbols of an anchor row) shifts.
+//   The packed kernels are compiled for PACKED_CTAS CTAs an SM, so that
+//   ptxas gives them the registers to keep every load in flight.
 // - CTAs of 64 threads, so that a long-read round's 4096 queries spread
 //   over 64 SMs.
 
@@ -78,70 +94,12 @@ using namespace rb2;
 
 namespace {
 
-constexpr int GROUP = 8;               // threads a query (packed)
-constexpr int QPB = THREADS / GROUP;   // 32 queries a CTA (packed)
-constexpr int ACHUNK_LOG = 24;         // symbols per int64 anchor row: 2^24
+constexpr int ACHUNK_LOG = 24;  // symbols per int64 anchor row: 2^24
 constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ int64_t floor_div(int64_t a, int64_t b) {
-  const int64_t q = a / b;  // b > 0
-  return (a % b != 0 && a < 0) ? q - 1 : q;
-}
 
 __device__ __forceinline__ int64_t clamp64(int64_t x, int64_t lo,
                                            int64_t hi) {
   return x < lo ? lo : (x > hi ? hi : x);
-}
-
-// 0x80 in each byte of a word at or past `valid` bytes (valid <= 0: all
-// four, valid >= 4: none)
-__device__ __forceinline__ uint32_t past_mask(int64_t valid) {
-  if (valid >= 4) return 0u;
-  if (valid <= 0) return 0x80808080u;
-  return 0x80808080u << (8 * (int)valid);
-}
-
-// a word of symbol bytes as count16_packed takes them: a byte 0..5 stays,
-// any other byte (6..255 unsigned) and every byte flagged in `past`
-// becomes 15, which is none of the six symbols
-__device__ __forceinline__ uint32_t as_nibbles(uint32_t x, uint32_t past) {
-  const uint32_t big =
-      ((((x & 0x7F7F7F7Fu) + 0x7A7A7A7Au) | x) & 0x80808080u) | past;
-  return (x & 0x0F0F0F0Fu) | ((big >> 7) * 0x0Fu);
-}
-
-// adds the counts of the six symbols among the bytes of v before byte
-// `valid` to (a, b): 8-bit fields, as count16_packed packs them
-__device__ __forceinline__ void count_before(uint4 v, int64_t valid,
-                                             uint32_t& a, uint32_t& b) {
-  v.x = as_nibbles(v.x, past_mask(valid));
-  v.y = as_nibbles(v.y, past_mask(valid - 4));
-  v.z = as_nibbles(v.z, past_mask(valid - 8));
-  v.w = as_nibbles(v.w, past_mask(valid - 12));
-  uint32_t ca, cb;
-  count16_packed(v, ca, cb);
-  a += ca;
-  b += cb;
-}
-
-// The group's count of symbol g (g = lane within the group of 8; the
-// value is meaningful in g < 6): the 8 lanes' 8-bit fields widened to
-// 16 bits and summed by shuffles.  Every lane of the warp must call it.
-__device__ __forceinline__ uint32_t group_count(uint32_t a, uint32_t b,
-                                                int g) {
-  uint32_t w0 = a & 0x00FF00FFu, w1 = (a >> 8) & 0xFFu;  // c0 | c2, c1
-  uint32_t w2 = b & 0x00FF00FFu, w3 = (b >> 8) & 0xFFu;  // c3 | c5, c4
-#pragma unroll
-  for (int o = 4; o > 0; o >>= 1) {
-    w0 += __shfl_xor_sync(FULL, w0, o);
-    w1 += __shfl_xor_sync(FULL, w1, o);
-    w2 += __shfl_xor_sync(FULL, w2, o);
-    w3 += __shfl_xor_sync(FULL, w3, o);
-  }
-  const uint32_t pair = g < 3 ? w0 : w2;
-  const uint32_t single = g < 3 ? w1 : w3;
-  const int f = g % 3;
-  return f == 1 ? single : (f == 0 ? pair & 0xFFFFu : pair >> 16);
 }
 
 // base + count (+ extra), wrapping as the plain version's integer adds do
@@ -152,50 +110,15 @@ __device__ __forceinline__ T add_wrap(T base, uint32_t c, int64_t extra) {
   return (T)((U)base + (U)c + (U)extra);
 }
 
-__global__ void __launch_bounds__(THREADS)
-rank_packed_kernel(const uint8_t* __restrict__ pbwt,
-                   const int64_t* __restrict__ blkA,
-                   const int32_t* __restrict__ blkB,
-                   const int64_t* __restrict__ pos,
-                   const int64_t* __restrict__ sub,
-                   const int32_t* __restrict__ extra,
-                   int64_t* __restrict__ out, int64_t Q, int64_t nprows,
-                   int64_t nrp, int64_t nanchor) {
-  const int g = threadIdx.x & (GROUP - 1);
-  const int64_t q0 = (int64_t)blockIdx.x * QPB + (threadIdx.x >> 3);
-  const bool live = q0 < Q;
-  const int64_t q = live ? q0 : Q - 1;
-  const int64_t x = pos[q] - (sub ? sub[q] : 0);
-  const int64_t blk = clamp64(floor_div(x, LANE), 0, 2 * nprows + 1);
-  const int64_t within = x - blk * LANE;
-  const int64_t off = 16 * g;
-  uint32_t a = 0, b = 0;
-  if (within > off) {
-    const int64_t prow = (blk >> 1) < nrp - 1 ? (blk >> 1) : nrp - 1;
-    uint4 v = *reinterpret_cast<const uint4*>(pbwt + prow * LANE + off);
-    const int sh = (int)(blk & 1) * 4;  // the nibble plane of symbol row blk
-    v.x = (v.x >> sh) & 0x0F0F0F0Fu;
-    v.y = (v.y >> sh) & 0x0F0F0F0Fu;
-    v.z = (v.z >> sh) & 0x0F0F0F0Fu;
-    v.w = (v.w >> sh) & 0x0F0F0F0Fu;
-    count_before(v, within - off, a, b);
-  }
-  const uint32_t c = group_count(a, b, g);
-  if (live && g < NSYM) {
-    const int64_t an = clamp64(floor_div(x, (int64_t)1 << ACHUNK_LOG), 0,
-                               nanchor - 1);
-    const int64_t brow = (blk >> 1) + (blk & 1) * (nprows + 1);
-    const int64_t base = blkA[an * NSYM + g] + (int64_t)blkB[brow * NSYM + g];
-    out[q * NSYM + g] =
-        add_wrap<int64_t>(base, c, extra ? extra[q * NSYM + g] : 0);
-  }
-}
-
-// ---- the pair design (rank_flat, rank_pend, rank_virtual) ----
-
 // threads (and queries) a CTA: small CTAs spread a small batch (4096
 // queries a long-read round) over 64 SMs
 constexpr int RT = 64;
+// CTAs an SM that the packed kernels are compiled for: 64 registers a
+// thread.  Under __launch_bounds__(RT) alone ptxas gave rank_packed 40
+// registers (its loads in series) and rank_virtual_packed 48 with a stack;
+// 64 keeps a thread's loads in flight at 32 warps an SM (the sweep over
+// 12, 16 and 20 CTAs is `chip_smoke.py --rank-variants`'s; PERF.md)
+constexpr int PACKED_CTAS = 16;
 
 __host__ __device__ constexpr int ilog2(int v) {
   return v <= 1 ? 0 : 1 + ilog2(v / 2);
@@ -228,7 +151,7 @@ __device__ __forceinline__ uint32_t past_word(int valid8) {
   return __funnelshift_lc(0u, 0x80808080u, (unsigned)max(valid8, 0));
 }
 
-// a word of symbol bytes as count16_sym3 takes them: a byte 0..5 stays,
+// a word of symbol bytes as count_sym3 takes them: a byte 0..5 stays,
 // any other byte (6..255 unsigned) and every byte flagged in `past`
 // becomes 7, which is none of the six symbols
 __device__ __forceinline__ uint32_t as_sym3(uint32_t x, uint32_t past) {
@@ -237,23 +160,31 @@ __device__ __forceinline__ uint32_t as_sym3(uint32_t x, uint32_t past) {
   return (x & 0x07070707u) | ((big >> 7) * 7u);
 }
 
+// a word of packed bytes as count_sym3 takes them, read in the nibble
+// plane sh (0: the low nibbles, 4: the high): a nibble 0..5 stays, a
+// nibble 6..15 (PAD, or anything past n) and every byte flagged in
+// `past` becomes 7
+__device__ __forceinline__ uint32_t plane_sym3(uint32_t x, int sh,
+                                               uint32_t past) {
+  const uint32_t v = (x >> sh) & 0x0F0F0F0Fu;
+  const uint32_t big = ((v + 0x7A7A7A7Au) & 0x80808080u) | past;
+  return (v & 0x07070707u) | ((big >> 7) * 7u);
+}
+
 // the six counts in 16-bit fields: c01 = c0 | c1 << 16, c23, c45
 struct Counts {
   uint32_t c01, c23, c45;
 };
 
-// Adds the counts of the six symbols among the bytes of v before byte
-// valid8 / 8 to c.  Bit-sliced as count16_packed (common.cuh) is, over
-// three planes: the 16 bytes (each 0..5 or 7) fold into 16 nibbles, bit i
-// of every nibble is gathered into plane p_i, and a symbol's 16 match
-// flags are one logic operation on the planes, counted by one __popc.
-__device__ __forceinline__ void count16_sym3(uint4 v, int valid8,
-                                             Counts& c) {
+// Adds the counts of the six symbols among the 16 bytes of x, y, z, w
+// (each 0..5 or 7) to c.  Bit-sliced as count16_packed (common.cuh) is,
+// over three planes: the 16 bytes fold into 16 nibbles, bit i of every
+// nibble is gathered into plane p_i, and a symbol's 16 match flags are
+// one logic operation on the planes, counted by one __popc.
+__device__ __forceinline__ void count_sym3(uint32_t x, uint32_t y,
+                                           uint32_t z, uint32_t w,
+                                           Counts& c) {
   constexpr uint32_t L = 0x11111111u, H = 0x22222222u;
-  const uint32_t x = as_sym3(v.x, past_word(valid8));
-  const uint32_t y = as_sym3(v.y, past_word(valid8 - 32));
-  const uint32_t z = as_sym3(v.z, past_word(valid8 - 64));
-  const uint32_t w = as_sym3(v.w, past_word(valid8 - 96));
   const uint32_t z0 = x | (y << 4), z1 = z | (w << 4);
   const uint32_t p0 = (z0 & L) | ((z1 << 1) & H);
   const uint32_t p1 = ((z0 >> 1) & L) | (z1 & H);
@@ -262,6 +193,25 @@ __device__ __forceinline__ void count16_sym3(uint4 v, int valid8,
            ((uint32_t)__popc(p0 & ~p1 & ~p2) << 16);
   c.c23 += __popc(~p0 & p1 & ~p2) + ((uint32_t)__popc(p0 & p1 & ~p2) << 16);
   c.c45 += __popc(~p0 & ~p1 & p2) + ((uint32_t)__popc(p0 & ~p1 & p2) << 16);
+}
+
+// Adds the counts of the six symbols among the bytes of v before byte
+// valid8 / 8 to c
+__device__ __forceinline__ void count16_sym3(uint4 v, int valid8,
+                                             Counts& c) {
+  count_sym3(as_sym3(v.x, past_word(valid8)),
+             as_sym3(v.y, past_word(valid8 - 32)),
+             as_sym3(v.z, past_word(valid8 - 64)),
+             as_sym3(v.w, past_word(valid8 - 96)), c);
+}
+
+// the same over the nibble plane sh of 16 packed bytes
+__device__ __forceinline__ void count16_plane(uint4 v, int sh, int valid8,
+                                              Counts& c) {
+  count_sym3(plane_sym3(v.x, sh, past_word(valid8)),
+             plane_sym3(v.y, sh, past_word(valid8 - 32)),
+             plane_sym3(v.z, sh, past_word(valid8 - 64)),
+             plane_sym3(v.w, sh, past_word(valid8 - 96)), c);
 }
 
 // this thread's four chunks (32 j + 16 h from off0 = 128 s + 16 h) of a
@@ -281,6 +231,14 @@ __device__ __forceinline__ void count4(const uint4 (&a)[4], int within,
 #pragma unroll
   for (int j = 0; j < 4; ++j)
     count16_sym3(a[j], 8 * (within - off0 - 32 * j), c);
+}
+
+// count4 over the nibble plane sh of a packed row's chunks
+__device__ __forceinline__ void count4_plane(const uint4 (&a)[4], int within,
+                                             int sh, int off0, Counts& c) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    count16_plane(a[j], sh, 8 * (within - off0 - 32 * j), c);
 }
 
 // The pair's sum of one query's counts: symbols 3h .. 3h + 2 in thread h.
@@ -336,6 +294,43 @@ struct PendQ {
     const int32_t* b = prefix + jb * NSYM + 3 * h;
 #pragma unroll
     for (int k = 0; k < 3; ++k) base[k] = ldg(b + k);
+  }
+};
+
+// A packed tier's base: the buffer of nrp packed rows (symbol rows 2r and
+// 2r + 1 are the low and high nibbles of packed row r), the int64 anchor
+// rows blkA[nanchor, 6] and the int32 anchor-relative rows blkB[2 nprows
+// + 2, 6] (index/packed.py's two-level tables)
+struct PackedBase {
+  const uint8_t* pbwt;
+  const int64_t* blkA;
+  const int32_t* blkB;
+  int64_t nprows, nrp, nanchor;
+};
+
+// A packed query at x: its packed row, the nibble plane of its symbol
+// row, its `within` (clamped to [0, 128]) and this thread's three base
+// entries (blkA's anchor row plus blkB's row, symbols 3h .. 3h + 2),
+// loaded now.  Every position and row stays in 64 bits (n past 2^31), and
+// both divisions are shifts.
+struct PackedQ {
+  const int8_t* row;
+  int within, sh;
+  int64_t base[3];
+
+  __device__ __forceinline__ PackedQ(int64_t x, const PackedBase& t, int h) {
+    const int64_t blk = clamp64(x >> 7, 0, 2 * t.nprows + 1);
+    within = (int)clamp64(x - blk * LANE, 0, LANE);
+    sh = 4 * (int)(blk & 1);
+    const int64_t prow = (blk >> 1) < t.nrp - 1 ? (blk >> 1) : t.nrp - 1;
+    row = reinterpret_cast<const int8_t*>(t.pbwt) + prow * LANE;
+    const int64_t an = clamp64(x >> ACHUNK_LOG, 0, t.nanchor - 1);
+    const int64_t brow = (blk >> 1) + (blk & 1) * (t.nprows + 1);
+    const int64_t* a = t.blkA + an * NSYM + 3 * h;
+    const int32_t* b = t.blkB + brow * NSYM + 3 * h;
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      base[k] = add_wrap<int64_t>(ldg(a + k), 0u, ldg(b + k));
   }
 };
 
@@ -516,6 +511,97 @@ rank_virtual_kernel(const int8_t* __restrict__ bwt,
   }
 }
 
+// the bodies of the packed kernels, which csrc/probes/rank_variants.cu
+// also compiles under other launch bounds
+__device__ __forceinline__ void rank_packed_body(
+    const PackedBase& t, const int64_t* __restrict__ pos,
+    int64_t* __restrict__ out, int64_t Q) {
+  const int lane = threadIdx.x & 31, h = lane & 1, P = lane >> 1;
+  const int64_t qw = (int64_t)blockIdx.x * RT + (threadIdx.x & ~31);
+  // the pair's queries, P and P + 16 of the warp (both threads load them)
+  const int64_t q0 = qw + P, q1 = qw + P + 16;
+  const int64_t c0 = q0 < Q ? q0 : Q - 1, c1 = q1 < Q ? q1 : Q - 1;
+  PackedQ a(ldg(pos + c0), t, h);
+  PackedQ b(ldg(pos + c1), t, h);
+  uint4 ra[4], rb[4];
+  load4(a.row, a.within, 16 * h, ra);
+  load4(b.row, b.within, 16 * h, rb);
+  Counts ca{0u, 0u, 0u}, cb{0u, 0u, 0u};
+  count4_plane(ra, a.within, a.sh, 16 * h, ca);
+  count4_plane(rb, b.within, b.sh, 16 * h, cb);
+  uint32_t sa[3], sb[3];
+  pair_sum(ca, h, sa);
+  pair_sum(cb, h, sb);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    if (q0 < Q)
+      out[q0 * NSYM + 3 * h + k] = add_wrap<int64_t>(a.base[k], sa[k], 0);
+    if (q1 < Q)
+      out[q1 * NSYM + 3 * h + k] = add_wrap<int64_t>(b.base[k], sb[k], 0);
+  }
+}
+
+__device__ __forceinline__ void rank_virtual_packed_body(
+    const PackedBase& t, const int64_t* __restrict__ vp,
+    const int8_t* __restrict__ psym, const int32_t* __restrict__ pprefix,
+    const int64_t* __restrict__ gq, int64_t* __restrict__ out, int64_t Q,
+    int nblk) {
+  const int lane = threadIdx.x & 31, h = lane & 1, P = lane >> 1;
+  const int64_t qw = (int64_t)blockIdx.x * RT + (threadIdx.x & ~31);
+  // one search a thread: query `lane` of the warp, and its base position
+  const int64_t qt = qw + lane;
+  const int64_t g = ldg(gq + (qt < Q ? qt : Q - 1));
+  const int64_t p = pend_search(vp, nblk, g);
+  const int64_t x = g - p;
+  // the pair counts queries P and P + 16: their pending rows and their
+  // packed rows, all loaded before any is counted
+  const int64_t q0 = qw + P, q1 = qw + P + 16;
+  PendQ pa(__shfl_sync(FULL, p, P), psym, pprefix, h);
+  PendQ pb(__shfl_sync(FULL, p, P + 16), psym, pprefix, h);
+  PackedQ fa(__shfl_sync(FULL, x, P), t, h);
+  PackedQ fb(__shfl_sync(FULL, x, P + 16), t, h);
+  uint4 ra[4], rb[4], rc[4], rd[4];
+  load4(pa.row, pa.within, 16 * h, ra);
+  load4(pb.row, pb.within, 16 * h, rb);
+  load4(fa.row, fa.within, 16 * h, rc);
+  load4(fb.row, fb.within, 16 * h, rd);
+  Counts pca{0u, 0u, 0u}, pcb{0u, 0u, 0u}, fca{0u, 0u, 0u}, fcb{0u, 0u, 0u};
+  count4(ra, pa.within, 16 * h, pca);
+  count4(rb, pb.within, 16 * h, pcb);
+  count4_plane(rc, fa.within, fa.sh, 16 * h, fca);
+  count4_plane(rd, fb.within, fb.sh, 16 * h, fcb);
+  uint32_t spa[3], spb[3], sfa[3], sfb[3];
+  pair_sum(pca, h, spa);
+  pair_sum(pcb, h, spb);
+  pair_sum(fca, h, sfa);
+  pair_sum(fcb, h, sfb);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    // the pending count in int32 (as pending_rank's occ), then widened
+    if (q0 < Q)
+      out[q0 * NSYM + 3 * h + k] = add_wrap<int64_t>(
+          fa.base[k], sfa[k], add_wrap<int32_t>(pa.base[k], spa[k], 0));
+    if (q1 < Q)
+      out[q1 * NSYM + 3 * h + k] = add_wrap<int64_t>(
+          fb.base[k], sfb[k], add_wrap<int32_t>(pb.base[k], spb[k], 0));
+  }
+}
+
+__global__ void __launch_bounds__(RT, PACKED_CTAS)
+rank_packed_kernel(PackedBase t, const int64_t* __restrict__ pos,
+                   int64_t* __restrict__ out, int64_t Q) {
+  rank_packed_body(t, pos, out, Q);
+}
+
+__global__ void __launch_bounds__(RT, PACKED_CTAS)
+rank_virtual_packed_kernel(PackedBase t, const int64_t* __restrict__ vp,
+                           const int8_t* __restrict__ psym,
+                           const int32_t* __restrict__ pprefix,
+                           const int64_t* __restrict__ gq,
+                           int64_t* __restrict__ out, int64_t Q, int nblk) {
+  rank_virtual_packed_body(t, vp, psym, pprefix, gq, out, Q, nblk);
+}
+
 }  // namespace
 
 #define RB2_KB_CASES(CALL) \
@@ -561,19 +647,18 @@ extern "C" int rb2_rank_flat(const void* bwt, const void* prefix,
 }
 
 // pbwt: uint8[nrp * 128], 16-byte aligned; blkA: int64[nanchor, 6]; blkB:
-// int32[2 * nprows + 2, 6]; pos: int64[Q]; sub: int64[Q] or null; extra:
-// int32[Q, 6] or null; out: int64[Q, 6].  Returns cudaGetLastError().
+// int32[2 * nprows + 2, 6]; pos: int64[Q]; out: int64[Q, 6].  Returns
+// cudaGetLastError().
 extern "C" int rb2_rank_packed(const void* pbwt, const void* blkA,
-                               const void* blkB, const void* pos,
-                               const void* sub, const void* extra, void* out,
+                               const void* blkB, const void* pos, void* out,
                                long long Q, long long nprows, long long nrp,
                                long long nanchor, void* stream) {
   if (Q > 0) {
-    rank_packed_kernel<<<(unsigned)((Q + QPB - 1) / QPB), THREADS, 0,
-                         (cudaStream_t)stream>>>(
-        (const uint8_t*)pbwt, (const int64_t*)blkA, (const int32_t*)blkB,
-        (const int64_t*)pos, (const int64_t*)sub, (const int32_t*)extra,
-        (int64_t*)out, Q, nprows, nrp, nanchor);
+    const PackedBase t{(const uint8_t*)pbwt, (const int64_t*)blkA,
+                       (const int32_t*)blkB, nprows, nrp, nanchor};
+    rank_packed_kernel<<<(unsigned)((Q + RT - 1) / RT), RT, 0,
+                         (cudaStream_t)stream>>>(t, (const int64_t*)pos,
+                                                 (int64_t*)out, Q);
   }
   return (int)cudaGetLastError();
 }
@@ -633,4 +718,25 @@ extern "C" int rb2_rank_virtual(const void* bwt, const void* prefix,
               : rank_virtual_launch<int32_t>(bwt, prefix, vp, psym, pprefix,
                                              g, out, Q, K, nprefix, nrows,
                                              pcap, lo, hi, s);
+}
+
+// pbwt, blkA, blkB, nprows, nrp, nanchor as rb2_rank_packed; vp, psym,
+// pprefix, pcap as rb2_rank_pend's vp, psym, prefix, pcap; g: int64[Q];
+// out: int64[Q, 6].  Returns cudaGetLastError().
+extern "C" int rb2_rank_virtual_packed(const void* pbwt, const void* blkA,
+                                       const void* blkB, const void* vp,
+                                       const void* psym, const void* pprefix,
+                                       const void* g, void* out, long long Q,
+                                       long long nprows, long long nrp,
+                                       long long nanchor, long long pcap,
+                                       void* stream) {
+  if (Q > 0) {
+    const PackedBase t{(const uint8_t*)pbwt, (const int64_t*)blkA,
+                       (const int32_t*)blkB, nprows, nrp, nanchor};
+    rank_virtual_packed_kernel<<<(unsigned)((Q + RT - 1) / RT), RT, 0,
+                                 (cudaStream_t)stream>>>(
+        t, (const int64_t*)vp, (const int8_t*)psym, (const int32_t*)pprefix,
+        (const int64_t*)g, (int64_t*)out, Q, (int)(pcap / LANE));
+  }
+  return (int)cudaGetLastError();
 }

@@ -240,26 +240,29 @@ def plan_round(psize, pcounts, reads: ReadStates, buf, d: int,
 
 def _state_rank_fn(state, K):
     """rank_fn(gpos) -> (M, 6) over the base of any tier (the rank kernels
-    on the flat and the packed tier); on the packed and the run tier it
-    also takes (sub, extra) and answers the rank at gpos - sub plus extra
-    (rank_cuda's convention, index/pending.py::rank_virtual_base's)."""
+    on the flat and the packed tier); on the run tier it also takes (sub,
+    extra) and answers the rank at gpos - sub plus extra
+    (index/pending.py::rank_virtual_base's convention)."""
     if isinstance(state, RunBwt):
         return lambda g, sub=None, extra=None: rank_cuda.shifted(
             lambda p: rank_global_runs(state.rend, state.rsym, state.bstart,
                                        state.bocc, p), g, sub, extra)
     if isinstance(state, PackedFlatBwt):
-        return lambda g, sub=None, extra=None: rank_cuda.rank_packed(
-            state.pbwt, state.blkA, state.blkB, g, sub, extra)
+        return lambda g: rank_cuda.rank_packed(state.pbwt, state.blkA,
+                                               state.blkB, g)
     return lambda g: rank_cuda.rank_flat(state.bwt, state.blk_prefix, g, K)
 
 
 def _virtual_rank_fn(state, pend, K):
     """rank_fn(gpos) -> (M, 6) over the frozen base plus the pending index:
-    one rank_virtual launch on the flat tier; the pending kernel, then the
-    base at g - p, on the packed tier (the run tier's base in plain torch)."""
-    if isinstance(state, (RunBwt, PackedFlatBwt)):
+    one launch of the flat or the packed virtual rank kernel; on the run
+    tier the pending kernel, then the base at g - p in plain torch."""
+    if isinstance(state, RunBwt):
         base_fn = _state_rank_fn(state, K)
         return lambda g: rank_virtual_base(base_fn, pend, g)
+    if isinstance(state, PackedFlatBwt):
+        return lambda g: rank_cuda.rank_virtual_packed(
+            state.pbwt, state.blkA, state.blkB, pend, g)
     return lambda g: rank_cuda.rank_virtual_flat(state.bwt, state.blk_prefix,
                                                  pend, g, K)
 

@@ -38,6 +38,7 @@ import torch
 
 from ..alphabet import NSYM
 from .flat import PAD
+from .packed import rank_global_packed
 from .rank import block_counts, prefix_rows, rank_global
 from . import pending_cuda, rank_cuda
 
@@ -136,12 +137,21 @@ def rank_virtual(bwt, blk_prefix, pend: PendingIndex, g, K: int, lo=None,
     return out + extra.to(out.dtype)
 
 
+def rank_virtual_packed(pbwt, blkA, blkB, pend: PendingIndex, g):
+    """6-symbol rank of the virtual (base + pending) sequence at ``g`` over
+    a packed base (the JAX package's rank_virtual_base over
+    rank_global_packed), int64: rank_global_packed at g - p plus the
+    pending counts.  Plain version of rank_cuda.rank_virtual_packed, the
+    packed tier's deferred rank in one launch."""
+    p, extra = pending_rank(pend, g)
+    return rank_global_packed(pbwt, blkA, blkB, g - p) + extra.long()
+
+
 def rank_virtual_base(base_rank_fn, pend: PendingIndex, g):
     """6-symbol rank of the virtual (base + pending) sequence at ``g``, with
     the base answered by base_rank_fn(pos, sub, extra) -> rank(pos - sub) +
-    extra, (Q, 6) (rank_cuda's convention): on the packed tier the rank
-    kernels' two launches, the pending count's and the base count's; the
-    run tier's base is plain torch."""
+    extra, (Q, 6) (rank_cuda.shifted's convention): the run tier's, the
+    pending kernel then its base rank in plain torch."""
     p, extra = rank_cuda.pending_rank(pend, g)
     return base_rank_fn(g, sub=p, extra=extra)
 

@@ -1,23 +1,20 @@
 """The rank kernels (csrc/rank.cu): the 6-symbol rank at a batch of
 positions, counted inside the 128-symbol row on the card, for the flat
 tier, the packed tier, the pending index and the virtual (base + pending)
-sequence of a deferred round on the flat tier.
+sequence of a deferred round on the flat and the packed tier.
 
 Each wrapper takes the arguments of its plain version and returns what it
 returns, bit for bit (dtypes and the clamps of out-of-range positions
 included): ``rank_flat`` of index/rank.py::rank_global, ``rank_packed``
 of index/packed.py::rank_global_packed, ``pending_rank`` of
 index/pending.py::pending_rank, ``rank_virtual_flat`` of
-index/pending.py::rank_virtual.  On CPU tensors a wrapper runs its plain
-version; on CUDA tensors it launches its kernel, or raises.
+index/pending.py::rank_virtual, ``rank_virtual_packed`` of
+index/pending.py::rank_virtual_packed.  On CPU tensors a wrapper runs its
+plain version; on CUDA tensors it launches its kernel, or raises.
 
-``rank_packed`` also takes ``sub`` (int64[Q]) and ``extra`` (int32[Q,
-6]) and then answers rank(pos - sub) + extra: index/pending.py::
-rank_virtual_base's base rank at g - p plus the pending count, in one
-launch after the pending kernel's (the packed tier's deferred rank).
-``rank_virtual_flat`` is the flat tier's deferred rank in one launch:
-the pending search and count and the flat count at g - p in one
-kernel."""
+``rank_virtual_flat`` and ``rank_virtual_packed`` are the flat and the
+packed tier's deferred rank in one launch each: the pending search and
+count and the base count at g - p in one kernel."""
 
 import torch
 
@@ -28,7 +25,7 @@ LANE = 128  # symbols per count row
 MAX_K = 1024  # the kernel's 8-bit per-thread counts hold K / 8 symbols
 # kernel launches by this process (CUDA-graph captures not), per kernel
 LAUNCHES = {"rank_flat": 0, "rank_packed": 0, "rank_pend": 0,
-            "rank_virtual": 0}
+            "rank_virtual": 0, "rank_virtual_packed": 0}
 I64_MIN, I64_MAX = -(1 << 63), (1 << 63) - 1
 
 
@@ -51,30 +48,22 @@ def rank_flat(bwt, blk_prefix, pos, K: int):
     return out
 
 
-def rank_packed(pbwt, blkA, blkB, pos, sub=None, extra=None):
-    """rank_global_packed(pbwt, blkA, blkB, pos - sub) + extra, int64."""
+def rank_packed(pbwt, blkA, blkB, pos):
+    """rank_global_packed(pbwt, blkA, blkB, pos), int64."""
     if pbwt.device.type == "cpu":
         from .packed import rank_global_packed
 
-        return shifted(lambda p: rank_global_packed(pbwt, blkA, blkB, p),
-                       pos, sub, extra)
+        return rank_global_packed(pbwt, blkA, blkB, pos)
     pos = pos.contiguous()
-    if pbwt.shape[0] % LANE or blkB.shape[0] % 2 or blkB.shape[0] < 2:
-        raise ValueError(f"rank_packed: buffer {pbwt.shape[0]} or blkB rows "
-                         f"{blkB.shape[0]} do not make whole packed rows")
     _check("rank_packed", pbwt, [
-        ("pbwt", pbwt, torch.uint8, (pbwt.shape[0],)),
-        ("blkA", blkA, torch.int64, (blkA.shape[0], NSYM)),
-        ("blkB", blkB, torch.int32, (blkB.shape[0], NSYM)),
-        *_query_args(pos, sub, extra)])
-    _aligned("rank_packed", "pbwt", pbwt)
+        *_packed_args("rank_packed", pbwt, blkA, blkB), *_query_args(pos)])
     out = torch.empty((pos.shape[0], NSYM), dtype=torch.int64,
                       device=pbwt.device)
     q = pos.shape[0]
     _launch("rank_packed", pbwt.device, q, _build.lib().rb2_rank_packed,
             pbwt.data_ptr(), blkA.data_ptr(), blkB.data_ptr(),
-            pos.data_ptr(), _ptr(sub), _ptr(extra), out.data_ptr(), q,
-            blkB.shape[0] // 2 - 1, pbwt.shape[0] // LANE, blkA.shape[0])
+            pos.data_ptr(), out.data_ptr(), q,
+            *_packed_dims(pbwt, blkA, blkB))
     return out
 
 
@@ -130,15 +119,37 @@ def rank_virtual_flat(bwt, blk_prefix, pend, g, K: int, lo=None, hi=None):
     return out
 
 
+def rank_virtual_packed(pbwt, blkA, blkB, pend, g):
+    """index/pending.py::rank_virtual_packed: the 6-symbol rank of the
+    virtual (base + pending) sequence at ``g`` over a packed base,
+    rank_global_packed at g - p plus pending_rank's counts, int64; p =
+    |{ i : vp[i] < g }|.  One launch of the packed virtual kernel."""
+    if pbwt.device.type == "cpu":
+        from .pending import rank_virtual_packed as plain
+
+        return plain(pbwt, blkA, blkB, pend, g)
+    g = g.contiguous()
+    _check("rank_virtual_packed", pbwt, [
+        *_packed_args("rank_virtual_packed", pbwt, blkA, blkB),
+        *_pend_args("rank_virtual_packed", pend),
+        ("g", g, torch.int64, (g.shape[0],))])
+    out = torch.empty((g.shape[0], NSYM), dtype=torch.int64,
+                      device=pbwt.device)
+    q = g.shape[0]
+    _launch("rank_virtual_packed", pbwt.device, q,
+            _build.lib().rb2_rank_virtual_packed, pbwt.data_ptr(),
+            blkA.data_ptr(), blkB.data_ptr(), pend.vp.data_ptr(),
+            pend.psym.data_ptr(), pend.blk_prefix.data_ptr(), g.data_ptr(),
+            out.data_ptr(), q, *_packed_dims(pbwt, blkA, blkB),
+            pend.vp.shape[0])
+    return out
+
+
 def shifted(rank_fn, pos, sub=None, extra=None):
     """rank_fn(pos - sub) + extra in rank_fn's dtype, by plain torch: the
-    wrappers' CPU path, and the base rank of a tier with no kernel."""
+    base rank of the run tier, which has no kernel."""
     out = rank_fn(pos if sub is None else pos - sub)
     return out if extra is None else out + extra.to(out.dtype)
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
 
 
 def _flat_args(what, bwt, blk_prefix, K):
@@ -159,6 +170,24 @@ def _flat_args(what, bwt, blk_prefix, K):
              (blk_prefix.shape[0], NSYM))]
 
 
+def _packed_args(what, pbwt, blkA, blkB):
+    """The checks of a packed buffer of whole 128-byte rows (16-byte
+    aligned) and its two-level tables; the (name, tensor, dtype, shape)
+    checks for _check."""
+    if pbwt.shape[0] % LANE or blkB.shape[0] % 2 or blkB.shape[0] < 2:
+        raise ValueError(f"{what}: buffer {pbwt.shape[0]} or blkB rows "
+                         f"{blkB.shape[0]} do not make whole packed rows")
+    _aligned(what, "pbwt", pbwt)
+    return [("pbwt", pbwt, torch.uint8, (pbwt.shape[0],)),
+            ("blkA", blkA, torch.int64, (blkA.shape[0], NSYM)),
+            ("blkB", blkB, torch.int32, (blkB.shape[0], NSYM))]
+
+
+def _packed_dims(pbwt, blkA, blkB):
+    """(nprows, nrp, nanchor): the packed kernels' table sizes."""
+    return blkB.shape[0] // 2 - 1, pbwt.shape[0] // LANE, blkA.shape[0]
+
+
 def _pend_args(what, pend):
     """The checks of a pending index (its capacity a multiple of 128, its
     planes 16-byte aligned); the (name, tensor, dtype, shape) checks."""
@@ -174,15 +203,10 @@ def _pend_args(what, pend):
              (pcap // LANE + 1, NSYM))]
 
 
-def _query_args(pos, sub=None, extra=None):
+def _query_args(pos):
     """The (name, tensor, dtype, shape) checks of a query batch."""
-    q = pos.shape[0] if pos.dim() == 1 else -1
-    out = [("pos", pos, torch.int64, (q,))]
-    if sub is not None:
-        out.append(("sub", sub, torch.int64, (q,)))
-    if extra is not None:
-        out.append(("extra", extra, torch.int32, (q, NSYM)))
-    return out
+    return [("pos", pos, torch.int64,
+             (pos.shape[0] if pos.dim() == 1 else -1,))]
 
 
 def _check(what, first, args):

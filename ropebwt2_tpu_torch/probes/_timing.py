@@ -250,6 +250,18 @@ def rank_virtual_bytes(g, p, x, K: int, width: int, nrows: int,
             + rank_flat_bytes(x, K, width, nrows, nprefix) - nq * 8)
 
 
+def rank_virtual_packed_bytes(g, p, x, nprows: int) -> int:
+    """The one-launch virtual rank over a packed base
+    (rank_virtual_packed) at ``g``, with this call's pending answers ``p``
+    and base positions ``x`` = g - p: the pending rank's and the packed
+    rank's bytes (rank_pend_bytes, rank_packed_bytes at x), less what the
+    two launches passed through device memory: p and the pending counts
+    written and read back, and the packed rank's read of its positions."""
+    nq = g.numel()
+    return (rank_pend_bytes(g, p) - nq * (8 + 6 * 4)
+            + rank_packed_bytes(x, nprows) - nq * 8)
+
+
 def windows_bytes(nwin: int, win: int = BS) -> int:
     """A staging of ``nwin`` windows of ``win`` bytes copied out: each
     window read once (with its int64 start) and written once."""

@@ -11,15 +11,23 @@ csrc/rank.cu's kernels, on request; no build path runs them.
   (shifts in place of the division); mode 2 is mode 1 without the count
   (loads, index arithmetic, the group sum and the stores: its answers
   are no rank).
+- ``packed(...)``: the earlier packed rank, 8 threads a query, at pos -
+  sub plus extra (the packed tier's earlier deferred rank, after the
+  pending kernel).
 - ``pend(...)``: the earlier pending rank, one lower bound over all of vp
   a thread.
-- ``part_flat(...)``: csrc/rank.cu's flat kernel's loads without the
-  count (K = 128, int32 tables; no rank).
+- ``part_flat(...)``, ``part_packed(...)``: csrc/rank.cu's flat and
+  packed kernels' loads without the count (K = 128, int32 tables for the
+  flat; no rank).
 - ``part_pend(count, ...)``: csrc/rank.cu's pending kernel's search
   alone (count False: p, no counts) or its count alone from a given p.
+- ``bound_packed(ctas, ...)``, ``bound_virtual_packed(ctas, ...)``:
+  csrc/rank.cu's packed kernels compiled for ``ctas`` CTAs an SM (12 or
+  20; 0: under ``__launch_bounds__(64)`` alone), beside its PACKED_CTAS.
 
-Modes 0 and 1, ``pend`` and the count alone return what their plain
-versions return (index/rank.py::rank_global,
+Modes 0 and 1, ``packed``, ``pend``, the count alone and the other
+launch bounds return what their plain versions return
+(index/rank.py::rank_global, index/packed.py::rank_global_packed,
 index/pending.py::pending_rank), and ``chip_smoke.py --rank-variants``
 holds them to those before it times them.  On CPU tensors each runs its
 plain version (mode 2 and the parts included); on CUDA tensors it
@@ -30,10 +38,14 @@ import torch
 
 from .. import _build
 from ..alphabet import NSYM
+from ..index.rank_cuda import _check, _packed_args, _packed_dims, _query_args
 
 MODES = (0, 1, 2)
-LAUNCHES = dict.fromkeys(("rankvar_flat", "rankvar_pend", "rankpart_flat",
-                         "rankpart_pend"), 0)  # eager launches
+LAUNCHES = dict.fromkeys(("rankvar_flat", "rankvar_packed", "rankvar_pend",
+                         "rankpart_flat", "rankpart_packed", "rankpart_pend",
+                         "rankbound_packed", "rankbound_virtual_packed"),
+                        0)  # eager launches
+BOUND_CTAS = (0, 12, 20)  # CTAs an SM of bound_*; 0: the thread bound alone
 
 
 def flat(mode: int, bwt, blk_prefix, pos, K: int, sub=None, extra=None):
@@ -60,6 +72,24 @@ def flat(mode: int, bwt, blk_prefix, pos, K: int, sub=None, extra=None):
             blk_prefix.data_ptr(), pos.data_ptr(), _ptr(sub), _ptr(extra),
             out.data_ptr(), q, K, blk_prefix.shape[0], bwt.shape[0] // K,
             int(blk_prefix.dtype == torch.int64))
+    return out
+
+
+def packed(pbwt, blkA, blkB, pos, sub=None, extra=None):
+    """The earlier packed rank kernel at pos - sub, plus extra, int64."""
+    if pbwt.device.type == "cpu":
+        from ..index.packed import rank_global_packed
+        from ..index.rank_cuda import shifted
+
+        return shifted(lambda p: rank_global_packed(pbwt, blkA, blkB, p),
+                       pos, sub, extra)
+    pos = pos.contiguous()
+    q = pos.shape[0]
+    out = torch.empty((q, NSYM), dtype=torch.int64, device=pbwt.device)
+    _launch("rankvar_packed", pbwt.device, q,
+            _build.probe_lib().rb2_rankvar_packed,
+            *_packed_ptrs(pbwt, blkA, blkB, pos), _ptr(sub), _ptr(extra),
+            out.data_ptr(), q, *_packed_dims(pbwt, blkA, blkB))
     return out
 
 
@@ -101,6 +131,61 @@ def part_flat(bwt, blk_prefix, pos):
     return out
 
 
+def part_packed(pbwt, blkA, blkB, pos):
+    """int64[Q, 6]: csrc/rank.cu's packed kernel's loads without the
+    count (no rank)."""
+    if pbwt.device.type == "cpu":
+        from ..index.packed import rank_global_packed
+
+        return rank_global_packed(pbwt, blkA, blkB, pos)
+    pos = pos.contiguous()
+    q = pos.shape[0]
+    out = torch.empty((q, NSYM), dtype=torch.int64, device=pbwt.device)
+    _launch("rankpart_packed", pbwt.device, q,
+            _build.probe_lib().rb2_rankpart_packed,
+            *_packed_ptrs(pbwt, blkA, blkB, pos), out.data_ptr(), q,
+            *_packed_dims(pbwt, blkA, blkB))
+    return out
+
+
+def bound_packed(ctas: int, pbwt, blkA, blkB, pos):
+    """rank_cuda.rank_packed compiled for ``ctas`` CTAs an SM."""
+    if pbwt.device.type == "cpu":
+        from ..index.packed import rank_global_packed
+
+        return rank_global_packed(pbwt, blkA, blkB, pos)
+    if ctas not in BOUND_CTAS:
+        raise ValueError(f"rankbound_packed: {ctas} CTAs an SM")
+    pos = pos.contiguous()
+    q = pos.shape[0]
+    out = torch.empty((q, NSYM), dtype=torch.int64, device=pbwt.device)
+    _launch("rankbound_packed", pbwt.device, q,
+            _build.probe_lib().rb2_rankbound_packed, ctas,
+            *_packed_ptrs(pbwt, blkA, blkB, pos), out.data_ptr(), q,
+            *_packed_dims(pbwt, blkA, blkB))
+    return out
+
+
+def bound_virtual_packed(ctas: int, pbwt, blkA, blkB, pend, g):
+    """rank_cuda.rank_virtual_packed compiled for ``ctas`` CTAs an SM."""
+    if pbwt.device.type == "cpu":
+        from ..index.pending import rank_virtual_packed
+
+        return rank_virtual_packed(pbwt, blkA, blkB, pend, g)
+    if ctas not in BOUND_CTAS:
+        raise ValueError(f"rankbound_virtual_packed: {ctas} CTAs an SM")
+    g = g.contiguous()
+    q = g.shape[0]
+    out = torch.empty((q, NSYM), dtype=torch.int64, device=pbwt.device)
+    _launch("rankbound_virtual_packed", pbwt.device, q,
+            _build.probe_lib().rb2_rankbound_virtual_packed, ctas,
+            *_packed_ptrs(pbwt, blkA, blkB, g)[:3], pend.vp.data_ptr(),
+            pend.psym.data_ptr(), pend.blk_prefix.data_ptr(), g.data_ptr(),
+            out.data_ptr(), q, *_packed_dims(pbwt, blkA, blkB),
+            pend.vp.shape[0])
+    return out
+
+
 def part_pend(count: bool, pi, g, p=None):
     """(p, occ): csrc/rank.cu's pending kernel's search alone (``count``
     False: occ is not written) or its count alone from the answers ``p``
@@ -125,6 +210,16 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _packed_ptrs(pbwt, blkA, blkB, pos):
+    """The pointers of a packed buffer, its tables and int64 positions,
+    checked as rank_cuda.rank_packed checks them."""
+    _check("rankvar_packed", pbwt, [
+        *_packed_args("rankvar_packed", pbwt, blkA, blkB),
+        *_query_args(pos)])
+    return pbwt.data_ptr(), blkA.data_ptr(), blkB.data_ptr(), pos.data_ptr()
+
+
+
 def _launch(name, device, q, fn, *args):
     if q == 0:
         return
@@ -136,8 +231,8 @@ def _launch(name, device, q, fn, *args):
 
 def sass_counts(lib_path) -> dict:
     """{kernel name with its mangled template arguments: SASS instructions
-    in its body} of every rank kernel (rank_* and rankvar_*) of a built
-    library, by ``cuobjdump -sass``
+    in its body} of every rank kernel (rank_*, rankvar_* and rankpart_*)
+    of a built library, by ``cuobjdump -sass``
     ({} where the toolkit has no cuobjdump).  Straight-line kernels
     (K = 128) issue about this many instructions a warp; a loop's body
     counts once."""
@@ -156,8 +251,8 @@ def sass_counts(lib_path) -> dict:
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            k = re.search(r"(rank(?:var)?_[a-z]+_kernel)(I\w*?E)?(?=E|Ev)",
-                          m.group(1))
+            k = re.search(r"(rank(?:var|part)?_[a-z_]+?_kernel)(I\w*?E)?"
+                          r"(?=E|Ev)", m.group(1))
             name = (k.group(1) + (k.group(2) or "")) if k else None
             if name:
                 out[name] = 0

@@ -393,8 +393,10 @@ def test_probe_library_units():
     assert [u.optional for u in spec.units] == \
         [False] * 2 + [True] * 6 + [False]
     assert _build.CSRC / "rank.cu" in spec.headers
-    assert {"rb2_rankvar_flat", "rb2_rankvar_pend", "rb2_rankpart_flat",
-            "rb2_rankpart_pend"} <= set(spec.units[-1].entry_points)
+    assert {"rb2_rankvar_flat", "rb2_rankvar_packed", "rb2_rankvar_pend",
+            "rb2_rankpart_flat", "rb2_rankpart_packed", "rb2_rankpart_pend",
+            "rb2_rankbound_packed", "rb2_rankbound_virtual_packed"} \
+        <= set(spec.units[-1].entry_points)
     (toy,) = _build.LIBRARIES["toy"]().units
     assert toy.source.name == "toy.cu" and not toy.optional
     assert set(toy.entry_points) == {"rb2_toy"}
