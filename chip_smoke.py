@@ -167,7 +167,12 @@ Phases, each reported on its own line:
    ShardedTorchBwt at a world of one over NCCL on phase 5's sustained
    reads (8 prefill batches, the last profiled, and 2 timed; R and pcap
    chosen at lcap 2^28): its BWT equals phase 5's flat BWT by md5; with
-   defer_r = 0 on one batch into an empty index it equals TorchBwt's; the
+   defer_r = 0 on one batch into an empty index it equals TorchBwt's; grown
+   with no plan through 3 batches of 2^20 uniform reads x 101 (lcap 2^27,
+   2^28, 2^29: two re-shards, each one all_to_all of ranges), each
+   re-shard's wall, n before it, bytes received (exactly the new window's
+   live symbols and the (d, 6) totals) and peak, the growth's own time,
+   and the BWT equal to TorchBwt's on the same reads by md5; the
    process group is destroyed after; (c) ``ROPEBWT2_TPU_SHARDED=1 python
    -m ropebwt2_tpu_torch.cli -s -d`` on phase 9's FASTQ in a fresh
    process: its FMD equals phase 9's run 1 byte for byte, and it logs
@@ -342,6 +347,10 @@ PEND_LONG_RUNS = (1 << 18, 1 << 12, LONG_N, 0.5)
 # 2^20 uniform reads x 101 on the packed tier (427,819,008 symbols)
 BENCH14_RUNS, SCALE14_BATCHES = 2, 4
 SHARD_D, SHARD_LCAP, SHARD_PCAP = 4, 1 << 26, 1 << 21
+# 13b's growth: reshard_run.BATCHES (3) batches of GROW_MBATCH uniform reads
+# x L_BENCH with no plan (scripts/reshard_run.py): lcap 2^27, 2^28, 2^29, two
+# re-shards
+GROW_MBATCH = 1 << 20
 SHARD_ROUTED = M_BENCH // SHARD_D
 SHARD_SLO = (0, 5, 3 * M_BENCH // 4)
 SHARD_SHIFT = (SHARD_D * SHARD_PCAP, 2 * 16 * SHARD_ROUTED)  # tail, s_lo
@@ -538,6 +547,11 @@ def read_launches():
     """{kernel name: launches since the last reset}."""
     return {name: mod.LAUNCHES if key is None else mod.LAUNCHES[key]
             for mod, name, key in _counters()}
+
+
+def gib(b):
+    """A byte count as "<B> B (<GiB> GiB)", or "not measured" (None)."""
+    return "not measured" if b is None else f"{b} B ({b / 2**30:.3f} GiB)"
 
 
 def launched(counts):
@@ -2385,15 +2399,18 @@ def phase_sharded(torch, ReadGen, kept, smi):
     """The sharded engine (parallel/): 13a, kernels A and B at the per-rank
     shapes of a world of 4; 13b, ShardedTorchBwt at a world of one over
     NCCL on phase 5's sustained reads (its BWT == phase 5's flat BWT by
-    md5), and with defer_r = 0 on one batch into an empty index (== the
-    flat engine's); 13c, the CLI under ROPEBWT2_TPU_SHARDED=1 on phase 9's
-    FASTQ in a fresh process (its FMD == phase 9's run 1)."""
+    md5), with defer_r = 0 on one batch into an empty index (== the
+    flat engine's), and grown with no plan through two re-shards (==
+    TorchBwt's BWT on the same reads by md5); 13c, the CLI under
+    ROPEBWT2_TPU_SHARDED=1 on phase 9's FASTQ in a fresh process (its FMD
+    == phase 9's run 1)."""
     import torch.distributed as dist
     from ropebwt2_tpu_torch.engine import TorchBwt
     from ropebwt2_tpu_torch.scripts.scale_run import text_md5
     from ropebwt2_tpu_torch.engine.bcr import _pad_pow2, _round_up
     from ropebwt2_tpu_torch.parallel.mesh import make_mesh
     from ropebwt2_tpu_torch.parallel.sharded import ShardedTorchBwt
+    from ropebwt2_tpu_torch.scripts import reshard_run
 
     syms = M_BENCH * (L_BENCH + 1)
     total = (PREFILL + SUSTAIN + 1) * syms
@@ -2473,12 +2490,34 @@ def phase_sharded(torch, ReadGen, kept, smi):
         one_launches = read_launches()
         got = one.bwt_array()
         del one
+        torch.cuda.empty_cache()
+        # growth with no plan: a re-shard at every doubling of the index
+        t_grow = time.perf_counter()
+        grown = ShardedTorchBwt(so=1, K=128, mesh=mesh)
+        reset_launches()  # the sharded path grown without a plan
+        watch, grow_rows = reshard_run.grow(grown, reshard_run.read_batches(
+            GROW_MBATCH, L_BENCH))
+        grow_launches = read_launches()
+        grow_s = time.perf_counter() - t_grow
+        t0 = time.perf_counter()
+        grow_md5 = text_md5(grown.bwt_array())
+        grow_md5_s = time.perf_counter() - t0
+        grow_peak = watch.run_peak()
+        del grown
     finally:
         mesh.close()
     ref = TorchBwt(so=1, K=128, device=DEV, defer_r=0)
     ref.insert_multi(first)
     one_ok = bool(np.array_equal(got, ref.bwt_array()))
     del ref, got
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ref = TorchBwt(so=1, K=128, device=DEV)
+    for bt in reshard_run.read_batches(GROW_MBATCH, L_BENCH):
+        ref.insert_multi(bt)
+    grow_ok = grow_md5 == text_md5(ref)
+    grow_ref_s = time.perf_counter() - t0
+    del ref
     torch.cuda.empty_cache()
     md5_ok = md5 == kept["md5"]
     rate = syms / min(walls) / 1e6
@@ -2496,12 +2535,39 @@ def phase_sharded(torch, ReadGen, kept, smi):
         f"index: {one_wall:.3f} s, {syms / one_wall / 1e6:.3f} Msym/s, "
         f"launches {launched(one_launches)}; == TorchBwt's BWT {one_ok}; "
         f"process group destroyed {not dist.is_initialized()}")
-    if not (md5_ok and counts_ok and one_ok) or dist.is_initialized():
+    recs = watch.records
+    say(f"[13b] growth with no plan, {reshard_run.BATCHES} batches of "
+        f"{GROW_MBATCH} uniform reads x {L_BENCH}: batch walls "
+        f"{[round(w, 4) for w, _, _ in grow_rows]} s, lcap after each "
+        f"{[lc for _, lc, _ in grow_rows]}, n {grow_rows[-1][2]}; "
+        f"peak device memory of the run {gib(grow_peak)}; launches "
+        f"{launched(grow_launches)}; {smi}")
+    for r in recs:  # the first plan makes the windows; the rest re-shard
+        say(f"[13b]   plan {r['lcap_from']} -> {r['lcap_to']} at n "
+            f"{r['n_from']}: wall {r['wall_s']:.6f} s (synchronised), "
+            f"received {r['recv_bytes']} B ({r['calls']}: (name, elements, "
+            f"bytes) a collective; the new window's live symbols "
+            f"min(lcap_to, n) and the (d, 6) totals wanted: "
+            f"{reshard_run.received_exactly(r, mesh.d, mesh.s)}), peak "
+            f"during it {gib(r['peak_b'])}")
+    reshards = [r for r in recs if r["lcap_from"]]
+    exact = all(reshard_run.received_exactly(r, mesh.d, mesh.s)
+                for r in recs)
+    say(f"[13b] growth: re-shards {len(reshards)} (2 wanted), each received "
+        f"exactly its new window's live symbols and the totals {exact}; BWT "
+        f"== TorchBwt's on the same reads (md5 of the text encoding) "
+        f"{grow_ok} ({grow_md5})")
+    grow_all = grow_s + grow_md5_s + grow_ref_s
+    say(f"[13b] growth's share of phase 13: {grow_all:.1f} s (the unplanned "
+        f"build {grow_s:.1f} s, its md5 {grow_md5_s:.1f} s, "
+        f"TorchBwt's reference build and md5 {grow_ref_s:.1f} s)")
+    if not (md5_ok and counts_ok and one_ok and grow_ok and exact) or \
+            len(reshards) < 2 or dist.is_initialized():
         raise AssertionError("phase 13b failed its checks")
     if launches["merge"] == 0 or launches["pending_merge"] == 0 or \
-            one_launches["merge"] == 0:
+            one_launches["merge"] == 0 or grow_launches["merge"] == 0:
         raise AssertionError(f"a kernel never launched: {launches}, "
-                             f"{one_launches}")
+                             f"{one_launches}, {grow_launches}")
     deferred_flat("[13b] sharded:", launches)
 
     # 13c: the CLI's switch, in a fresh process, on phase 9's FASTQ
@@ -2528,7 +2594,8 @@ def phase_sharded(torch, ReadGen, kept, smi):
     if not (same and switch):
         raise AssertionError("phase 13c failed its checks")
     return {"sharded": (launches, SUSTAIN),
-            "sharded_batch": (one_launches, 1)}, out
+            "sharded_batch": (one_launches, 1),
+            "sharded_growth": (grow_launches, reshard_run.BATCHES)}, out
 
 
 # --------------------------------------------------------------- phase 14

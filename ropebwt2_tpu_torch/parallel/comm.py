@@ -14,7 +14,9 @@ The JAX collectives map one for one: axis_index -> the group rank; psum ->
 all_reduce; all_gather -> all_gather_single (all_gather_into_tensor where
 the installed torch has no all_gather_single); all_to_all ->
 all_to_all_single with equal splits; ppermute to a neighbour ->
-batch_isend_irecv.  Every call is issued by every rank in the same order,
+batch_isend_irecv.  A re-shard, where the JAX engine places the host copy
+of the BWT with a NamedSharding, is all_to_all_single with uneven splits
+(exchange_ranges).  Every call is issued by every rank in the same order,
 and none reads a value back to the host, so a rank's round loop never
 waits on its device.
 
@@ -118,6 +120,15 @@ class ShardComm:
         out = x.new_empty(self.d * x.numel())
         _ALL_GATHER(out, x.reshape(-1), group=self.group)
         return out.view((self.d,) + tuple(x.shape))
+
+    def exchange_ranges(self, out, x, out_splits, in_splits):
+        """One all_to_all of uneven ranges: rank t receives the next
+        in_splits[t] elements of x, in order, and ``out`` takes
+        out_splits[t] elements from each rank t, in order.  The splits are
+        host integers on which every rank agrees; a zero sends nothing.
+        ``out`` and ``x`` may be views of larger tensors."""
+        dist.all_to_all_single(out, x, list(out_splits), list(in_splits),
+                               group=self.group)
 
     # ---- scans with cross-rank carries ----
 

@@ -33,6 +33,14 @@ one hop right, where a second kernel A call on a stitched buffer shifts
 them in (the drift again, ppref[s] phantom marks).  d * pcap <= lcap keeps
 that one hop.
 
+Between batches the index grows (ShardedTorchBwt._plan) to the lcap of
+the JAX engine's formula, once a batch.  Where the JAX engine copies the
+BWT to the host and places each device's row of it, the ranks re-cut
+their windows in one all_to_all of uneven ranges (reshard_splits): rank s
+sends each rank the part of its old window's live prefix that lies in
+that rank's new window, so a rank receives at most its new window's live
+symbols, never the whole BWT.
+
 Every batch is a host loop that reads nothing from the device.  The BWT
 and the tables match the JAX engine's row for row (convert.py::
 sharded_from_numpy carries a JAX state over).
@@ -306,6 +314,35 @@ def sharded_bcr_batch(state, reads, buf, n_rounds: int, *, K, so, lcap,
     return st, rd
 
 
+def plan_lcap(n, extra, lcap, d, K):
+    """The window on which the JAX engine's _plan(extra) leaves an index of
+    n symbols in d windows of lcap (0: none yet): lcap while n + extra
+    fits, else the least power of two >= max(K, 4096) whose d windows hold
+    it, rounded up to a multiple of K."""
+    need = n + extra
+    if lcap and need <= lcap * d:
+        return lcap
+    return _round_up(_pad_pow2(-(-need // d), lo=max(K, 4096)), K)
+
+
+def reshard_splits(n, lcap, lcap2, d, s):
+    """Rank s's splits of the all_to_all that re-cuts n symbols from d
+    windows of lcap into d windows of lcap2: (send, recv), d sizes each.
+    send[t] is the part of s's old live range [s * lcap, min((s + 1) *
+    lcap, n)) that lies in t's new window [t * lcap2, (t + 1) * lcap2),
+    recv[t] the part of t's old live range in s's new window.  In rank
+    order the sends tile s's old live prefix and the receives its new one:
+    sum(send) = min(lcap, n - s * lcap) and sum(recv) = min(lcap2, n - s *
+    lcap2), at least 0."""
+
+    def part(a, b):  # the symbols of old window a in new window b
+        lo = max(a * lcap, b * lcap2)
+        hi = min((a + 1) * lcap, (b + 1) * lcap2, n)
+        return max(0, hi - lo)
+
+    return [part(s, t) for t in range(d)], [part(t, s) for t in range(d)]
+
+
 class ShardedTorchBwt:
     """Multi-device BWT builder, the counterpart of ShardedTpuBwt, with
     TorchBwt's surface: every rank of the mesh makes one and calls the
@@ -379,32 +416,43 @@ class ShardedTorchBwt:
         eng._plan(0)  # the sharded state now, so that export works at once
         return eng
 
-    def _plan(self, extra):
-        """Re-shard to the capacity of ``extra`` more symbols (between
-        batches): d windows of lcap, a power of two >= max(K, 4096).  The
-        old BWT is gathered on every rank's device, and each rank keeps
-        its new window of it."""
-        need = self._n + extra
-        if self.state is not None and need <= self._lcap * self.d:
+    def _plan(self, extra, mpad=0):
+        """Grow to the capacity of ``extra`` more symbols (between
+        batches), in at most one re-shard: to the lcap on which the JAX
+        engine's _plan(extra) leaves the index, and past it, when a round of
+        ``mpad`` rows could outrun a window (mpad > lcap, the drift guard),
+        to the lcap of its second _plan(n + extra + mpad * d) (plan_lcap).
+        The windows are re-cut by ranges in one all_to_all: rank s sends
+        each rank t the part of its old window's live prefix that lies in
+        t's new window (reshard_splits), straight from the old window into
+        the new one, so that a rank holds no more than its old and its new
+        window and their tables, and receives only the live symbols of its
+        new window.  The first plan cuts the windows from the restored
+        index (from_single) or makes them empty."""
+        lcap = plan_lcap(self._n, extra, self._lcap, self.d, self.K)
+        if mpad > lcap:
+            lcap = plan_lcap(self._n, self._n + extra + mpad * self.d, lcap,
+                             self.d, self.K)
+        if lcap == self._lcap:
             return
-        lcap = _round_up(_pad_pow2(-(-need // self.d), lo=max(self.K, 4096)),
-                         self.K)
-        dev = self.device
+        dev, s = self.device, self.mesh.s
         comm = self._comm()
+        window = torch.full((lcap + PAD_TAIL,), PAD, dtype=torch.int8,
+                            device=dev)
         if self.state is not None:
-            old = comm.all_gather(self.state.bwt[: self._lcap]).view(-1)
+            send, recv = reshard_splits(self._n, self._lcap, lcap, self.d, s)
+            if self._n:  # every rank knows n: all of them skip, or none
+                comm.exchange_ranges(window[: sum(recv)],
+                                     self.state.bwt[: sum(send)], recv, send)
             psize, pcounts = self.state.psize, self.state.pcounts
         elif self._seed is not None:
             old, psize, pcounts = self._seed
             self._seed = None
+            part = old[: self._n][s * lcap: (s + 1) * lcap]
+            window[: part.numel()] = part
         else:
-            old = torch.zeros(0, dtype=torch.int8, device=dev)
             psize = torch.zeros(NSYM, dtype=I64, device=dev)
             pcounts = torch.zeros((NSYM, NSYM), dtype=I64, device=dev)
-        part = old[: self._n][self.mesh.s * lcap: (self.mesh.s + 1) * lcap]
-        window = torch.full((lcap + PAD_TAIL,), PAD, dtype=torch.int8,
-                            device=dev)
-        window[: part.numel()] = part
         local = build_block_tables(window[:lcap], self.K, dtype=I64)
         self.state = ShardedBwt(
             bwt=window, blk_prefix=_with_global_base(comm, local, lcap,
@@ -457,11 +505,9 @@ class ShardedTorchBwt:
         a multiple of 8 d bytes."""
         m = lens.shape[0]
         total = int(lens.sum()) + m
-        self._plan(total)
         d = self.d
         mpad = _round_up(max(_pad_pow2(m), d), d)
-        if mpad > self._lcap:  # drift guard: one round inserts <= mpad
-            self._plan(self._n + total + mpad * d)
+        self._plan(total, mpad)  # the drift guard: a round inserts <= mpad
         strides = (lens + 8) & ~np.int64(7)
         starts = np.concatenate([[0], np.cumsum(strides)[:-1]])
         rstarts = np.concatenate([[0], np.cumsum(lens)[:-1]])
