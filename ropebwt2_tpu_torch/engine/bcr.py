@@ -66,7 +66,7 @@ from ..index.runs import (
 )
 from ..parallel.comm import LocalComm
 
-I64 = torch.int64
+I32, I64 = torch.int32, torch.int64
 LOCAL = LocalComm()
 PLAN_ALIGN = 1 << 17  # upfront-plan capacity rounding (the JAX package's)
 PACK_ALIGN = 1 << 20  # capacity rounding of the packed tier
@@ -108,10 +108,10 @@ def _emitted_before(x, order):
     """W[:, t] = sum of x[:, s] over the symbols s emitted before t: an
     exclusive running sum of the columns in emission order."""
     cols = [None] * NSYM
-    running = torch.zeros_like(x[:, 0])
-    for s in order:
-        cols[s] = running
-        running = running + x[:, s]
+    cols[order[0]] = torch.zeros_like(x[:, 0])
+    cols[order[1]] = running = x[:, order[0]]
+    for prev, s in zip(order[1:], order[2:]):
+        cols[s] = running = running + x[:, prev]
     return torch.stack(cols, dim=1)
 
 
@@ -120,15 +120,30 @@ def _take(t, idx):
     return t.gather(1, idx[:, None])[:, 0]
 
 
+def bucket_totals(comm, key, pre):
+    """int64[6, 6]: [b, s] = the rows of bucket b that insert s, over every
+    rank.  ``key`` holds the rows' buckets in sorted order and ``pre`` is
+    comm.prefix_rows of the rows' one-hot symbols, so a bucket's totals are
+    pre at its end less pre at its start (a rank's share on a ShardComm
+    rank, then summed over the ranks)."""
+    bounds = torch.searchsorted(key, torch.arange(NSYM + 1,
+                                                  device=key.device))
+    return comm.psum_array(pre[bounds].diff(dim=0).long())
+
+
 def plan_round(psize, pcounts, reads: ReadStates, buf, d: int,
                is_first: bool, rank_fn, *, so, comm=None):
     """Steps 1-4 and 6 of one round.  ``rank_fn(gpos) -> (M, 6)`` gives
     6-symbol ranks at global positions (the base table, or base + pending).
 
     ``comm`` carries the few global steps (the bucket sort, the symbol
-    fetch, the scans, the boundary rolls, the sums): None is one device
-    (parallel/comm.py::LocalComm); a ShardComm runs the same plan on this
-    rank's block of the read states (parallel/sharded.py).
+    fetch, the running counts, the lookups at flagged rows, the boundary
+    rolls, the sums): None is one device (parallel/comm.py::LocalComm); a
+    ShardComm runs the same plan on this rank's block of the read states
+    (parallel/sharded.py).  Where the JAX plan scans down the rows with
+    cummax and cummin, each scan carries a value from one row of the row's
+    group (its head, its bucket's head, its last row), so here each is a
+    lookup at that row, in the column of the row's symbol.
 
     Returns (new_reads, gX, sym, stream, active, ins_bucket, n_ins); gX and
     stream are meaningful on active rows only."""
@@ -159,10 +174,22 @@ def plan_round(psize, pcounts, reads: ReadStates, buf, d: int,
     tkey = c * 2 + inert.long()
     bucket_head = (arange_m == 0) | (tkey != comm.roll1(tkey))
     head = bucket_head | (u != comm.roll1(u))
-    hh = torch.stack([torch.where(head, arange_m, 0),
-                      torch.where(bucket_head, arange_m, 0)], dim=1)
-    hh = comm.scan(torch.cummax, hh)
-    headidx, bktheadidx = hh[:, 0], hh[:, 1]
+
+    # ---- per-row / per-group combinatorics ----
+    # pre[m, s]: active rows before m (in any bucket) that insert s; wpre:
+    # the same summed over the symbols emitted before each column.  Row
+    # m + 1 of each holds the counts up to and including row m.
+    oh = (sym[:, None] == torch.arange(NSYM, device=dev)[None, :]) \
+        & active[:, None]
+    pre = comm.prefix_rows(oh, I32)
+    order = _insertion_order(so)
+    wpre = _emitted_before(pre, order)
+    excl, We, Wc = pre[:-1], wpre[:-1], wpre[1:]
+    # the counts at the group's head, at the bucket's head and at the
+    # group's last row, in the column of the row's symbol
+    headidx, (head_excl, We_head) = comm.last_flagged(head, sym, excl, We)
+    bktheadidx, (bkt_excl,) = comm.last_flagged(bucket_head, sym, excl)
+    _, (Wc_tail,) = comm.next_flagged(comm.shift_up1(head, True), sym, Wc)
 
     # stored intervals are in progressive coordinates; E = reads in earlier
     # groups of this bucket recovers start-of-round coordinates
@@ -188,46 +215,21 @@ def plan_round(psize, pcounts, reads: ReadStates, buf, d: int,
 
     # ---- 4. insertion points per symbol, start-of-round local coords ----
     # X[:, s] = L + the interval's counts of the symbols emitted before s
-    order = _insertion_order(so)
     X = L[:, None] + _emitted_before(delta, order)
     gX = poc + _take(X, sym)
 
-    # ---- per-row / per-group combinatorics ----
-    oh = (sym[:, None] == torch.arange(NSYM, device=dev)[None, :]) \
-        & active[:, None]
-    oh = oh.long()
-    csum = comm.scan(torch.cumsum, oh)  # inclusive
-    excl = csum - oh
+    before_in_group = Wc_tail - We_head
+    P_sym = head_excl - bkt_excl  # by earlier groups of the bucket
 
-    Wc = _emitted_before(csum, order)
-    We = _emitted_before(excl, order)
-    is_tail = comm.shift_up1(head, True)
-    fwd = comm.scan(torch.cummax, torch.cat([
-        torch.where(head[:, None], excl, 0),
-        torch.where(bucket_head[:, None], excl, 0),
-        torch.where(head[:, None], We, 0),
-    ], dim=1))
-    head_excl, bkt_excl = fwd[:, :NSYM], fwd[:, NSYM:2 * NSYM]
-    We_head = fwd[:, 2 * NSYM:]
-    big = torch.iinfo(I64).max
-    Wc_tail = comm.scan(torch.cummin, torch.where(is_tail[:, None], Wc, big),
-                        reverse=True)
-    before_in_group = _take(Wc_tail - We_head, sym)
-    P_sym = _take(head_excl - bkt_excl, sym)  # by earlier groups of bucket
-
-    # per-bucket inserted-symbol totals (rows 6-7 take the padding rows'
-    # zeros)
-    ins_bucket = torch.zeros((8, NSYM), dtype=I64, device=dev)
-    ins_bucket.index_add_(0, c, oh)
-    ins_bucket = comm.psum_array(ins_bucket[:NSYM])
+    ins_bucket = bucket_totals(comm, torch.where(dead, 0, c), pre)
     ac_excl = _excl_rows(pcounts + ins_bucket)
 
     # ---- global tie rank (stream index) of each insertion ----
-    rank_in_run = _take(excl - head_excl, sym)
+    rank_in_run = _take(excl, sym) - head_excl
     stream = headidx - comm.sum_scalar(inert) + before_in_group + rank_in_run
 
     # ---- interval update (+ fused cross-bucket rebase) ----
-    l_new = _take(TL, sym) + P_sym + _take(ac_excl[c], sym)
+    l_new = _take(TL, sym) + P_sym + ac_excl[c, sym]
     u_new = l_new + _take(delta, sym)
     l = torch.where(active, l_new, l)
     u = torch.where(active, u_new, u)

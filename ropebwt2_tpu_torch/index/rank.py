@@ -1,7 +1,9 @@
 """Blockwise rank (occ) over the flat BWT buffer (counterpart of
 ropebwt2_tpu/index/rank.py): a dense per-block prefix-count table plus an
-in-block count, the batched equivalent of rope_rank2a (rope.c:179-194).
-Plain torch on either device; none of these functions is a kernel."""
+in-block count, the batched equivalent of rope_rank2a (rope.c:179-194);
+and the running sums and flagged-row lookups that the build's plans take
+down their rows, as one-dimensional scans and gathers.  Plain torch on
+either device; none of these functions is a kernel."""
 
 import torch
 
@@ -20,21 +22,35 @@ def block_counts(x, K: int):
 
 def prefix_rows(cnts, dtype):
     """dtype[rows + 1, S]: the running sum over the rows of a (rows, S)
-    count table, with a zero row in front.  The sum runs along the last
-    dimension of the transposed table: PyTorch's CUDA scan along the first
-    dimension of a narrow table walks each column in one thread."""
-    t = torch.cumsum(cnts.t().contiguous(), dim=1, dtype=dtype)
-    zero = torch.zeros((t.shape[0], 1), dtype=dtype, device=cnts.device)
-    return torch.cat([zero, t], dim=1).t().contiguous()
+    count table, with a zero row in front.  The columns, each behind a zero,
+    are laid end to end and summed in one 1-D cumsum (PyTorch's CUDA scan
+    of a 1-D tensor is one device-wide scan; a scan down a narrow table
+    walks each column in one thread block), and each column's start is
+    subtracted in dtype.  The whole table's sum must fit dtype."""
+    rows, ncol = cnts.shape
+    x = torch.empty((ncol, rows + 1), dtype=dtype, device=cnts.device)
+    x[:, 0] = 0
+    x[:, 1:] = cnts.t()
+    t = torch.cumsum(x.view(-1), 0, dtype=dtype).view(ncol, rows + 1)
+    out = torch.empty((rows + 1, ncol), dtype=dtype, device=cnts.device)
+    return torch.sub(t.t(), t[:, 0], out=out)
 
 
-def scan_rows(op, x):
-    """op (torch.cumsum / cummax / cummin) down the rows of an (M, S)
-    table, run along the last dimension of its transpose: PyTorch's CUDA
-    scan along the first dimension of a narrow table walks each column in
-    one thread."""
-    y = op(x.t().contiguous(), dim=1)
-    return (y if isinstance(y, torch.Tensor) else y.values).t()
+def flagged_rows(flag, after=False, none=-1):
+    """For each row m of a bool[M] flag vector, the last row at or before m
+    whose flag is set (the first at or after m when ``after``), ``none``
+    where there is no such row.  One 1-D cumsum numbers the flagged rows,
+    a scatter puts each flagged row at its number (the other rows go to a
+    spare slot), and a gather reads, at each row, the row stored at the
+    number of the last flagged row at or before it (of the next one)."""
+    m = flag.shape[0]
+    k = torch.cumsum(flag, 0)  # from 1 (inclusive count)
+    if after:
+        k = k.add(flag, alpha=-1)  # from 0 (exclusive; a bool takes no -)
+    pos = torch.full((m + 2,), none, dtype=torch.int64, device=flag.device)
+    pos.index_put_((torch.where(flag, k, m + 1),),
+                   torch.arange(m, device=flag.device))
+    return pos[k]
 
 
 def build_block_tables(bwt, K: int, dtype=torch.int64):

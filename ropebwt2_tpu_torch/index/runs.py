@@ -45,7 +45,7 @@ import torch
 
 from ..alphabet import NSYM
 from .flat import PAD, resolve_device
-from .rank import prefix_rows, scan_rows
+from .rank import flagged_rows, prefix_rows
 
 I32 = torch.int32
 I64 = torch.int64
@@ -242,19 +242,16 @@ def _plan_items(state: RunBwt, pos, sym, stream, valid):
     prev_is_dup = (sp & _roll1(sp, False) & (rix == _roll1(rix, -1))
                    & (off == _roll1(off, -1)) & (csym == _roll1(csym, PAD)))
     # next group head, next split and next non-duplicate at or after a row
-    rev = scan_rows(torch.cummin, torch.stack([
-        torch.where(ghead, row, _BIG), torch.where(sp, row, _BIG),
-        torch.where(~prev_is_dup, row, _BIG)], 1).flip(0)).flip(0)
-    nh, ns_incl, nd = rev.unbind(1)
+    nh, ns_incl, nd = (flagged_rows(f, after=True, none=_BIG)
+                       for f in (ghead, sp, ~prev_is_dup))
     gl = (_shift_up1(nh, _BIG) - 1).clamp_(max=M - 1)
     ns = _shift_up1(ns_incl, _BIG)  # next split strictly after a row
     nd = _shift_up1(nd, _BIG)
-    # a group's extend count before it, and its first split
-    fwd = scan_rows(torch.cummax, torch.stack([
-        torch.where(ghead, cex - exti, 0),
-        torch.where(ghead, ns_incl, 0)], 1))
-    ce = cex - fwd[:, 0]  # extends of my group up to and including me
-    fs = fwd[:, 1]
+    # a group's extend count before it, and its first split: their values
+    # at the group's head
+    gh = flagged_rows(ghead)
+    ce = cex - (cex - exti)[gh]  # extends of my group up to and including me
+    fs = ns_incl[gh]
 
     nsc = ns.clamp(max=M - 1)
     in_group_ns = ns <= gl

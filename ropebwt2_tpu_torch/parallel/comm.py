@@ -4,11 +4,13 @@ ropebwt2_tpu/parallel/comm.py).
 ``plan_round`` (engine/bcr.py) is written against this small interface, so
 that the same algorithm runs on one device (LocalComm: exactly the ops the
 single-device plan always ran) and across the ranks of a process group
-(ShardComm: local scans plus the carries and boundary rows that the other
-ranks hold).  Where the JAX package runs one SPMD program under shard_map,
-the port runs one process per shard under torch.distributed: rank s holds
-the LOCAL block of every (M,) or (M, C) read-state array, rows
-[s * ml, (s + 1) * ml) of the global batch.
+(ShardComm: the local running sums and flagged-row lookups plus the
+carries and boundary rows that the other ranks hold).  The running sums
+and lookups are one-dimensional scans and gathers
+(index/rank.py::prefix_rows, flagged_rows).  Where the JAX package runs
+one SPMD program under shard_map, the port runs one process per shard
+under torch.distributed: rank s holds the LOCAL block of every (M,) or
+(M, C) read-state array, rows [s * ml, (s + 1) * ml) of the global batch.
 
 The JAX collectives map one for one: axis_index -> the group rank; psum ->
 all_reduce; all_gather -> all_gather_single (all_gather_into_tensor where
@@ -30,7 +32,7 @@ import torch
 import torch.distributed as dist
 
 from ..alphabet import NSYM
-from ..index.rank import scan_rows
+from ..index.rank import flagged_rows, prefix_rows
 
 _ALL_GATHER = getattr(dist, "all_gather_single", None) \
     or dist.all_gather_into_tensor
@@ -51,12 +53,20 @@ class LocalComm:
         """buf[off] (clamped) of the read buffer, as int64."""
         return buf[off.clamp(0, buf.shape[0] - 1)].long()
 
-    def scan(self, op, x, reverse=False):
-        """op (torch.cumsum / cummax / cummin) down the rows of x, from the
-        last row up when ``reverse``."""
-        if reverse:
-            return scan_rows(op, x.flip(0)).flip(0)
-        return scan_rows(op, x)
+    def prefix_rows(self, x, dtype):
+        """dtype[M + 1, C]: the running sum down the rows of an (M, C) x,
+        with a zero row in front."""
+        return prefix_rows(x, dtype)
+
+    def last_flagged(self, flag, col, *tables):
+        """(h, [t[h, col] for each (M, C) table t]): h[m] is the last row at
+        or before m whose flag is set.  The first row's flag must be set."""
+        return _take_flagged(flagged_rows(flag), col, tables)
+
+    def next_flagged(self, flag, col, *tables):
+        """last_flagged with h[m] the first row at or after m whose flag is
+        set.  The last row's flag must be set."""
+        return _take_flagged(flagged_rows(flag, after=True), col, tables)
 
     def roll1(self, x):
         return torch.roll(x, 1)
@@ -72,12 +82,9 @@ class LocalComm:
         return x.sum()
 
 
-# combine and identity of each scan's carry
-_COMBINE = {
-    torch.cumsum: (torch.add, lambda dt: 0),
-    torch.cummax: (torch.maximum, lambda dt: torch.iinfo(dt).min),
-    torch.cummin: (torch.minimum, lambda dt: torch.iinfo(dt).max),
-}
+def _take_flagged(h, col, tables):
+    """(h, [t[h, col] for t in tables]): one gather a table."""
+    return h, [t[h, col] for t in tables]
 
 
 class ShardComm:
@@ -130,30 +137,50 @@ class ShardComm:
         dist.all_to_all_single(out, x, list(out_splits), list(in_splits),
                                group=self.group)
 
-    # ---- scans with cross-rank carries ----
+    # ---- running sums and flagged rows with cross-rank carries ----
 
-    def carry(self, tots, op, reverse=False):
-        """op's combine of the (C,) totals of the ranks before this one
-        (after it when ``reverse``); the identity on the first rank."""
-        combine, ident = _COMBINE[op]
-        allt = self.all_gather(tots)
-        sel = allt[self.s + 1:] if reverse else allt[: self.s]
-        out = tots.new_full(tots.shape, ident(tots.dtype))
-        for row in sel:
-            out = combine(out, row)
-        return out
+    def carry(self, tots):
+        """The sum of the (C,) totals of the ranks before this one (zeros
+        on the first rank), in the totals' dtype."""
+        return self.all_gather(tots)[: self.s].sum(0, dtype=tots.dtype)
 
-    def scan(self, op, x, reverse=False):
-        squeeze = x.dim() == 1
-        x2 = x[:, None] if squeeze else x
-        if reverse:
-            loc = scan_rows(op, x2.flip(0)).flip(0)
-            base = self.carry(loc[0], op, reverse=True)
-        else:
-            loc = scan_rows(op, x2)
-            base = self.carry(loc[-1], op)
-        out = _COMBINE[op][0](loc, base[None, :])
-        return out[:, 0] if squeeze else out
+    def prefix_rows(self, x, dtype):
+        loc = prefix_rows(x, dtype)
+        return loc + self.carry(loc[-1])[None, :]
+
+    def _flagged(self, flag, col, tables, after):
+        """last_flagged (next_flagged when ``after``) over the global rows:
+        the local lookup, and for the rows with no flagged row on their
+        side on this rank, the one that the nearest earlier (later) rank
+        with a flag holds.  One all_gather a call of this rank's last
+        (first) flagged row, global (a row no rank has where there is
+        none), and the tables' rows there."""
+        base = self.s * self.ml
+        h = flagged_rows(flag, after)  # local row, -1 where none
+        have = h >= 0
+        hc, vals = _take_flagged(h.clamp(min=0), col, tables)
+        edge, has = (hc[:1], have[:1]) if after else (hc[-1:], have[-1:])
+        none = self.d * self.ml if after else -1
+        allt = self.all_gather(torch.cat(
+            [torch.where(has, edge + base, none)]
+            + [t[edge][0].long() for t in tables]))
+        rows = allt[self.s + 1:, 0] if after else allt[: self.s, 0]
+        if rows.numel() == 0:  # the first (last) row is flagged here
+            return h + base, vals
+        # the nearest rank with a flag holds the least (greatest) row
+        src = rows.argmin() + self.s + 1 if after else rows.argmax()
+        far = allt.index_select(0, src.reshape(1))[0]
+        out, at = [], 1
+        for t, v in zip(tables, vals):
+            out.append(torch.where(have, v, far[at:][col].to(t.dtype)))
+            at += t.shape[1]
+        return torch.where(have, h + base, far[0]), out
+
+    def last_flagged(self, flag, col, *tables):
+        return self._flagged(flag, col, tables, after=False)
+
+    def next_flagged(self, flag, col, *tables):
+        return self._flagged(flag, col, tables, after=True)
 
     # ---- the stable bucket sort as a global permutation ----
 
@@ -165,8 +192,8 @@ class ShardComm:
         allt = self.all_gather(oh.sum(0))  # (d, 6) rows per bucket and rank
         tot = allt.sum(0)
         start = torch.cumsum(tot, 0) - tot + allt[: self.s].sum(0)
-        csum = scan_rows(torch.cumsum, oh)
-        dest = start[key] + csum.gather(1, key[:, None])[:, 0] - 1
+        excl = prefix_rows(oh, torch.int64)  # rows of each bucket before
+        dest = start[key] + excl.gather(1, key[:, None])[:, 0]
         return self.permute(dest, arrays)
 
     # ---- boundary rows ----
@@ -220,8 +247,9 @@ class ShardComm:
 
     def _slots(self, tgt):
         """slot[i]: the rank of row i among the local rows of its target."""
-        oh = (tgt[:, None] == torch.arange(self.d, device=tgt.device)).long()
-        return (scan_rows(torch.cumsum, oh) - 1).gather(1, tgt[:, None])[:, 0]
+        oh = tgt[:, None] == torch.arange(self.d, device=tgt.device)
+        excl = prefix_rows(oh, torch.int64)  # rows of each target before
+        return excl.gather(1, tgt[:, None])[:, 0]
 
     def exchange(self, tgt, valid, payload):
         """Route rows to target ranks (``valid`` None: every row).  payload:

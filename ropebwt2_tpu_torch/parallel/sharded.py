@@ -103,7 +103,7 @@ def _with_global_base(comm, local, lcap, K):
     """A window's table of window-local counts, plus the counts of every
     window before it, in table_dtype(lcap * d)."""
     local = local.to(table_dtype(lcap * comm.d))
-    return local + comm.carry(local[lcap // K], torch.cumsum)[None, :]
+    return local + comm.carry(local[lcap // K])[None, :]
 
 
 def _routed_rank_fn(comm, st, lcap, K):

@@ -1,7 +1,8 @@
 """The port's plan collectives (ropebwt2_tpu_torch/parallel/comm.py) on
 gloo ranks on the CPU: ShardComm's primitives against numpy (the cases of
-tests/test_sharded.py::test_shardcomm_primitives_vs_numpy, and skewed
-routings: every row to one rank), plan_round through a ShardComm against
+tests/test_sharded.py::test_shardcomm_primitives_vs_numpy, the lookups at
+the last and next flagged rows, the per-bucket totals, and skewed
+routings: every row to one rank), LocalComm's lookups against a loop, plan_round through a ShardComm against
 plan_round on one device, round after round, and LocalComm against the
 default.  Worlds of 2 and 4 ranks are spawned processes over a file://
 store under tmp_path; they import torch and the port only.  Exact
@@ -117,6 +118,18 @@ def _plan_rounds(so, comm, mesh, rounds=8):
     return out
 
 
+def _flagged_loop(flag, after):
+    """h[m]: the last row at or before m whose flag is set (the first at or
+    after m when ``after``), -1 where there is none; a loop."""
+    h = np.empty(len(flag), np.int64)
+    cur = -1
+    for i in (range(len(flag) - 1, -1, -1) if after else range(len(flag))):
+        if flag[i]:
+            cur = i
+        h[i] = cur
+    return h
+
+
 def _primitives(rank, d):
     """ShardComm's primitives against numpy on this rank's rows."""
     ml = 256
@@ -139,12 +152,34 @@ def _primitives(rank, d):
 
     comm = ShardComm(None, ml, d)
     check("iota", comm.iota(ml, "cpu"), np.arange(m))
-    check("cumsum", comm.scan(torch.cumsum, blk(x)), np.cumsum(x, 0))
-    check("cumsum 1-D", comm.scan(torch.cumsum, blk(v)), np.cumsum(v))
-    check("cummax", comm.scan(torch.cummax, blk(x)),
-          np.maximum.accumulate(x, 0))
-    check("cummin_rev", comm.scan(torch.cummin, blk(x), reverse=True),
-          np.minimum.accumulate(x[::-1], 0)[::-1])
+    want_pre = np.concatenate([np.zeros((1, 3), np.int64), np.cumsum(x, 0)])
+    got_pre = comm.prefix_rows(blk(x), torch.int32)
+    assert np.array_equal(got_pre.numpy(),
+                          want_pre[rank * ml: (rank + 1) * ml + 1]), rank
+    # the value at the last / next flagged row: random flags, and flags on
+    # the first and last rows only (the ranks between have none, so the
+    # carry skips them)
+    col = rng.integers(0, 3, size=m)
+    for name, flag in (("random", rng.random(m) < 0.05),
+                       ("ends only", np.zeros(m, bool))):
+        flag[0] = flag[-1] = True
+        for after in (False, True):
+            h = _flagged_loop(flag, after)
+            look = comm.next_flagged if after else comm.last_flagged
+            y = x * 2 + v[:, None]
+            gh, (gx, gy) = look(blk(flag), blk(col), blk(x), blk(y))
+            check((name, after, "row"), gh, h)
+            check((name, after, "x"), gx, x[h, col])
+            check((name, after, "y"), gy, y[h, col])
+    # per-bucket totals over sorted bucket keys, padding rows inserting none
+    skey = np.sort(key)
+    sym = rng.integers(0, 6, size=m)
+    oh = (sym[:, None] == np.arange(6)) & (v % 4 != 0)[:, None]
+    got = bcr.bucket_totals(comm, blk(skey),
+                            comm.prefix_rows(blk(oh), torch.int32))
+    want = np.zeros((6, 6), np.int64)
+    np.add.at(want, (skey, sym), oh[np.arange(m), sym])
+    assert np.array_equal(got.numpy(), want), rank
     want_roll = np.roll(v, 1)
     want_roll[0] = 0  # the first rank's first row has no left neighbour
     check("roll1", comm.roll1(blk(v)), want_roll)
@@ -199,6 +234,35 @@ def test_shardcomm_matches_numpy_and_one_device(d, tmp_path):
     new read states, gX, sym, stream, active on each rank's rows, and the
     global ins_bucket and n_ins), on d gloo ranks."""
     join_world(start_world(_comm_world, d, tmp_path), timeout=240)
+
+
+@pytest.mark.parametrize("case", ["random", "every row a head",
+                                  "one group", "padding rows first",
+                                  "one row"])
+def test_local_flagged_lookups_match_a_loop(case):
+    """LocalComm.last_flagged / next_flagged (the row and each table's
+    value there in the row's column) against a loop over the rows."""
+    rng = np.random.default_rng(6)
+    m = 1 if case == "one row" else 300
+    flag = rng.random(m) < (0.2 if case == "random" else 0.3)
+    if case == "every row a head":
+        flag[:] = True
+    elif case == "one group":
+        flag[:] = False
+    elif case == "padding rows first":
+        flag[:100] = False
+    x = rng.integers(0, 1 << 20, size=(m, 6)).astype(np.int32)
+    col = rng.integers(0, 6, size=m)
+    comm = LocalComm()
+    for after in (False, True):
+        f = flag.copy()
+        f[-1 if after else 0] = True
+        h = _flagged_loop(f, after)
+        look = comm.next_flagged if after else comm.last_flagged
+        gh, (gx,) = look(torch.from_numpy(f), torch.from_numpy(col),
+                         torch.from_numpy(x))
+        assert np.array_equal(gh.numpy(), h), after
+        assert np.array_equal(gx.numpy(), x[h, col]), after
 
 
 def test_local_comm_is_the_default():

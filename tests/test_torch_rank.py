@@ -13,6 +13,8 @@ are held to reach the wrappers, so that on the card they take the kernels
 and not the plain count: a deferred flat round ranks through
 rank_virtual_flat, a deferred packed round through rank_virtual_packed
 (one launch each).
+prefix_rows, which builds the rank tables, is held to numpy's cumsum of
+each column (int32, and int64 past 2^31).
 
 The tests marked ``cuda`` hold each kernel to its plain version on the
 card at 2^16 queries (K 128 to 1024 for the flat and the virtual rank;
@@ -377,6 +379,24 @@ def test_sharded_rank_functions_reach_the_wrappers(defer_r, monkeypatch):
 
 
 # ----------------------------------------------------------------- card
+
+@pytest.mark.parametrize("dtype,rows,hi", [
+    (torch.int32, 300, 100),
+    (torch.int64, 300, 1 << 28),  # every column's sum passes 2^31
+    (torch.int32, 0, 1),
+])
+def test_prefix_rows_is_a_cumsum_down_each_column(dtype, rows, hi):
+    """prefix_rows (one 1-D scan of the columns laid end to end, less each
+    column's start) against numpy's cumsum of each column on its own."""
+    rng = np.random.default_rng(5)
+    cnts = rng.integers(0, hi, size=(rows, 6)).astype(np.int32)
+    got = rank.prefix_rows(torch.from_numpy(cnts), dtype)
+    want = np.zeros((rows + 1, 6), np.int64)
+    for s in range(6):
+        want[1:, s] = np.cumsum(cnts[:, s].astype(np.int64))
+    assert got.dtype == dtype and got.shape == (rows + 1, 6)
+    assert np.array_equal(got.numpy(), want)
+
 
 @pytest.fixture
 def dev():
