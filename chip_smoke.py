@@ -133,7 +133,8 @@ Phases, each reported on its own line:
    child process (both strands, the default -m: one batch of ~214 M
    symbols), which must build on the card with the native reader and
    writer; then ``-s -m 64m`` with text output in this process (several
-   batches); the FMD decoded by FmdReader equals the text BWT byte for
+   batches, its rounds op by op, graphs=False, so that every call of
+   kernels A and B is recorded with its values); the FMD decoded by FmdReader equals the text BWT byte for
    byte, an LF walk over it spells back 1000 strings of the input, and -b
    on 2^14 reads then -i with 2^14 more equals one build of both.  The
    shapes the two runs give kernels A and B must be phases 2 and 3's
@@ -188,6 +189,18 @@ Phases, each reported on its own line:
    ropebwt2_tpu_torch.scripts.scale_shards`` (the sharded engine on the
    card, worlds of the ranks this host's cards hold, each rank 0's BWT
    equal to TorchBwt's).
+15. the graph runner (engine/graph.py), which replays each round of a
+   batch on the flat and the packed tier as CUDA graphs (the default on
+   the card), against graphs=False on uniform reads x 101: the headline
+   shape (2^20 reads a batch, flat, R 8, 4 batches planned), 2^17 reads
+   (R 32, pcap 2^22), the capacity path's packed tier (planned at
+   2,246,049,792, R 16, pcap 2^24) and 1024 reads of phase 12's lengths
+   (R 16); both ways the BWT's md5 and the launches of the timed batches
+   must be equal; host ms a round, wall and busy share (the device time
+   of one more batch under the profiler's CUDA activity over the timed
+   batches' mean wall; on long reads of the timed batch itself), peak
+   memory allocated and reserved, graphs captured and the seconds it
+   took, and a flush's copy of the merged buffer back.
 
 Launches are counted per path: each path (the batch and the sustained
 regime of phase 5, flat and packed, the capacity build of phase 6, the
@@ -197,10 +210,10 @@ tier's timed batches of phase 10, the deep-coverage build of phase 11,
 each long-read build of phase 12, the sharded engine's timed batches and
 its batch merged every round in phase 13; phase 14's children count their
 own from 0 and report them) runs
-with every count set to 0 just before it and is read just after. A count
-is of eager launches: the probes time short kernels in CUDA graphs,
-whose capture launches nothing and whose replays do not call the
-wrappers. Every kernel's entry in the kernels line has its time, its
+with every count set to 0 just before it and is read just after. A batch
+of the graph runner counts the launches of each replayed graph
+(utils/launches.py); the probes time short kernels in CUDA graphs of
+their own, whose captures and replays count nothing. Every kernel's entry in the kernels line has its time, its
 plain version's, its bound (the bytes it must move over the card's 3.35
 TB/s, probes/_timing.py), the library call's where one PyTorch call
 computes the same function, and its launches by path.
@@ -219,6 +232,8 @@ power limit, and then
 """
 
 import contextlib
+import gc
+import hashlib
 import json
 import os
 import subprocess
@@ -328,6 +343,10 @@ DEEP_RECORD = ("8c27991cdea3ff556ac0144b0eff8fb5", 9.47)
 # batch) on the flat tier (R = 16: pcap 2^16) and on the run tier (R = 64
 # from 5 * rcap: pcap 2^18)
 LONG_READS, LONG_LEN, LONG_SEED = 4096, (2000, 5000), 12
+# phase 15: batches planned at the 2^20 shapes (twice at 2^17), long reads
+# (shorter than phase 12's: 2,001 rounds a batch, three batches both ways)
+GRAPH_BATCHES, GRAPH_LONG, GRAPH_SEED = 4, 1024, 15
+GRAPH_LONG_LEN = (1000, 2000)
 LONG_N = 14_400_000  # about its symbols
 PEND_LONG = (1 << 16, 1 << 12, LONG_N, 0.5)
 PEND_LONG_RUNS = (1 << 18, 1 << 12, LONG_N, 0.5)
@@ -1887,36 +1906,47 @@ def revcomp_hashes(mat):
 
 
 @contextlib.contextmanager
-def engine_calls():
+def engine_calls(eager=False):
     """Record the engine's calls of kernel A's wrapper (flush or round,
     cap, lanes, live n, active lanes) and of pending_add (kernel B: pcap,
     lanes, rows pending before, active lanes), and its batches, by
-    wrapping the engine's names for them.  The counts stay on the device
-    until the caller reads them: the run is not made to wait."""
-    from ropebwt2_tpu_torch.engine import bcr
+    wrapping the engine's names for them (bcr.merge, bcr.pending_add and
+    engine/graph.py's Runner.run).  The counts stay on the device until
+    the caller reads them: the run is not made to wait.  A batch of CUDA
+    graphs calls the wrappers only where it captures a round, and a value
+    read inside a capture is not the replay's: the shapes hold either
+    way, and ``eager`` runs every batch op by op (as graphs=False does),
+    so that every call is recorded with its values."""
+    from ropebwt2_tpu_torch.engine import bcr, graph
     from ropebwt2_tpu_torch.index.flat import PAD_TAIL
 
-    saved = bcr.merge, bcr.pending_add, bcr.bcr_batch
+    saved = bcr.merge, bcr.pending_add
+    saved_run = graph.Runner.run
     log = {"batches": [], "merge": [], "pending": []}
 
-    def batch(state, reads, buf, n_rounds, **kw):
-        log["batches"].append(kw.get("defer_r", 0) > 0)
-        return saved[2](state, reads, buf, n_rounds, **kw)
+    def run(self, *a, **kw):
+        log["batches"].append(self.R > 0)
+        if eager:
+            self.graphs = False
+        return saved_run(self, *a, **kw)
 
     def merge(bwt, pos, sym, stream, valid, n, K):
         log["merge"].append((log["batches"][-1], bwt.shape[0] - PAD_TAIL,
-                             pos.shape[0], n, valid.sum()))
+                             pos.shape[0], n.clone(), valid.sum()))
         return saved[0](bwt, pos, sym, stream, valid, n, K)
 
     def pending_add(pend, gX, sym, stream, active):
-        log["pending"].append((pend.cap, gX.shape[0], pend.p, active.sum()))
+        log["pending"].append((pend.cap, gX.shape[0], pend.p.clone(),
+                               active.sum()))
         return saved[1](pend, gX, sym, stream, active)
 
-    bcr.merge, bcr.pending_add, bcr.bcr_batch = merge, pending_add, batch
+    bcr.merge, bcr.pending_add = merge, pending_add
+    graph.Runner.run = run
     try:
         yield log
     finally:
-        bcr.merge, bcr.pending_add, bcr.bcr_batch = saved
+        bcr.merge, bcr.pending_add = saved
+        graph.Runner.run = saved_run
 
 
 def largest_calls(log):
@@ -2016,7 +2046,7 @@ def phase_cli(torch, ReadGen, smi):
     txt = os.path.join(out, "cli.txt")
     argv = ["-s", "-m", CLI_M, "-o", txt, fq]
     torch.cuda.synchronize()
-    with engine_calls() as calls:
+    with engine_calls(eager=True) as calls:
         reset_launches()  # the CLI path: run 2, in this process
         t0 = time.perf_counter()
         rc = cli.main(argv)
@@ -2341,6 +2371,167 @@ def phase_long(torch, smi):
         raise AssertionError("the long-read builds differ")
     return out
 
+
+
+# --------------------------------------------------------------- phase 15
+
+def device_busy(fn):
+    """(wall s, device busy s) of fn() under torch.profiler with its CUDA
+    activity alone, from the profiler's raw events (its FunctionEvent tree
+    takes minutes to build for a batch of thousands of rounds); the ops
+    run on one stream, so their times add up."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    cpu = torch.autograd.DeviceType.CPU
+    return wall, sum(ev.end_ns() - ev.start_ns()
+                     for ev in prof.profiler.kineto_results.events()
+                     if ev.device_type() != cpu
+                     and not ev.is_user_annotation()) / 1e9
+
+
+def graph_path(torch, name, m, planned, prefill, timed, opts, batch_of,
+               smi, profiled_apart=True):
+    """One path with CUDA graphs and with graphs=False, in turns (graphs,
+    eager): ``planned`` batches of ``m`` reads planned, ``prefill`` (two
+    or more) untimed (the first op by op, the graphs captured in the
+    second), ``timed`` timed, then one more under the profiler for the
+    device's busy time (``profiled_apart`` False: the timed batches run
+    under it); returns both ways' figures."""
+    from ropebwt2_tpu_torch.engine import TorchBwt, bcr
+
+    out = {}
+    for graphs in (True, False):
+        gc.collect()  # what earlier phases left in cycles, before the peak
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        eng = TorchBwt(so=1, K=128, device=DEV, graphs=graphs, **opts)
+        eng.plan(sum(batch_of(i)[1] for i in range(planned)))
+        for i in range(prefill):
+            eng.insert_multi(batch_of(i)[0])
+        torch.cuda.synchronize()
+        host, walls, rounds = [], [], 0
+
+        def timed_batches():
+            nonlocal rounds
+            for i in range(prefill, prefill + timed):
+                bt, _, nr = batch_of(i)
+                t0 = time.perf_counter()
+                eng.insert_multi(bt)
+                host.append(time.perf_counter() - t0)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                rounds += nr
+
+        reset_launches()
+        if profiled_apart:
+            timed_batches()
+            launches = read_launches()
+            bt = batch_of(prefill + timed)[0]
+            busy = device_busy(lambda: eng.insert_multi(bt))[1]
+        else:
+            busy = device_busy(timed_batches)[1] / timed
+            launches = read_launches()
+        stats = eng._runner.stats
+        md5 = hashlib.md5(eng.bwt_array().tobytes()).hexdigest()
+        # a flush's copy of the merged buffer and tables back (bcr._store)
+        st = eng.state
+        tmp = bcr.dataclasses.replace(st, **{
+            f: torch.empty_like(getattr(st, f))
+            for f in ("bwt", "blk_prefix", "pbwt", "blkA", "blkB")
+            if hasattr(st, f)})
+        store_ms = time_ms(lambda: bcr._store(tmp, st))
+        del tmp, st
+        out[graphs] = {
+            "md5": md5, "launches": launches,
+            "host_ms_a_round": 1e3 * sum(host) / rounds,
+            "wall_s": sum(walls) / timed, "busy_s": busy,
+            "busy_share": busy / (sum(walls) / timed),
+            "peak": torch.cuda.max_memory_allocated(),
+            "reserved": torch.cuda.max_memory_reserved(),
+            "graphs": stats["graphs"], "tapes": stats["tapes"],
+            "empty": stats["empty"], "capture_s": stats["capture_s"],
+            "store_ms": store_ms,
+            "cap": eng.state.cap, "R": eng._choose_defer(
+                1 << max(m - 1, 15).bit_length())[0]}
+        del eng
+    g, e = out[True], out[False]
+    for way, r in (("graphs", g), ("eager", e)):
+        say(f"[15] {name} ({way}): cap {r['cap']} R {r['R']}, host "
+            f"{r['host_ms_a_round']:.4f} ms a round, wall {r['wall_s']:.4f} "
+            f"s a batch, busy {r['busy_s']:.4f} s a profiled batch, "
+            f"busy share {r['busy_share']:.3f}; max_memory_allocated "
+            f"{gib(r['peak'])}, max_memory_reserved {gib(r['reserved'])}; "
+            f"graphs {r['graphs']} in {r['tapes']} tapes ({r['empty']} "
+            f"empty segments) captured in {r['capture_s']:.3f} s; a "
+            f"flush's copy back {r['store_ms']:.4f} ms; md5 {r['md5']}; "
+            f"{smi}")
+    same = g["md5"] == e["md5"]
+    say(f"[15] {name}: graphs == eager by md5 {same}; launches equal "
+        f"{g['launches'] == e['launches']} ({launched(g['launches'])}); host "
+        f"ms a round {e['host_ms_a_round'] / g['host_ms_a_round']:.2f}x "
+        f"fewer, wall {e['wall_s'] / g['wall_s']:.2f}x shorter")
+    if not same or g["launches"] != e["launches"]:
+        raise AssertionError(f"phase 15: {name} differs with graphs")
+    if g["graphs"] == 0 or e["graphs"] != 0:
+        raise AssertionError(f"phase 15: {name} graphs {g['graphs']} / "
+                             f"eager {e['graphs']}")
+    return out
+
+
+def phase_graphs(torch, smi):
+    """The graph runner (engine/graph.py) against graphs=False on the card
+    at the headline shape (2^20 reads x 101 a batch, flat, R 8), at 2^17
+    (R 32, pcap 2^22), on the capacity path's packed tier (planned at
+    CAP_SCALE, R 16, pcap 2^24) and on three batches of the same
+    GRAPH_LONG reads of GRAPH_LONG_LEN (R 16; the third timed under the
+    profiler):
+    equal md5s and launches, host ms a round, wall, busy share, peak
+    memory, graphs captured and capture seconds, both ways."""
+    cache = {}
+
+    def uniform(m):
+        def batch_of(i):  # batch i of m reads, the same both ways
+            if (m, i) not in cache:
+                cache[(m, i)] = np.random.default_rng(
+                    [GRAPH_SEED, m, i]).integers(1, 5, (m, L_BENCH)).astype(
+                        np.int8)
+            return cache[(m, i)], m * (L_BENCH + 1), L_BENCH + 1
+        return batch_of
+
+    lens = np.random.default_rng(LONG_SEED).integers(
+        GRAPH_LONG_LEN[0], GRAPH_LONG_LEN[1] + 1, GRAPH_LONG)
+    long_reads = np.split(np.random.default_rng(LONG_SEED + 1).integers(
+        1, 5, int(lens.sum())).astype(np.int8), np.cumsum(lens)[:-1])
+
+    def long_of(i):
+        return long_reads, int(lens.sum()) + len(lens), int(lens.max()) + 1
+
+    out = {}
+    for name, m, planned, pre, timed, opts, of in (
+            ("headline", 1 << 20, GRAPH_BATCHES, 2, 1, {"defer_r": 8},
+             uniform(1 << 20)),
+            ("2^17", 1 << 17, 2 * GRAPH_BATCHES, 2, 4, {"defer_r": 32},
+             uniform(1 << 17)),
+            ("capacity, packed", 1 << 20, GRAPH_BATCHES, 2, 1,
+             {"defer_r": 16, "pack4": 1}, uniform(1 << 20)),
+            ("long reads", GRAPH_LONG, 3, 2, 1, {"defer_r": 16}, long_of)):
+        if name == "capacity, packed":
+            total = CAP_SCALE  # the capacity path's plan
+
+            def of(i, _u=of):
+                bt, syms, nr = _u(i)
+                return bt, (total if i == 0 else 0), nr
+        out[name] = graph_path(torch, name, m, planned, pre, timed, opts,
+                               of, smi, profiled_apart=of is not long_of)
+        cache.clear()
+    return out
 
 # --------------------------------------------------------------- phase 13
 
@@ -2943,6 +3134,7 @@ def main():
     paths.update(shard_paths)
     merge_res.update(stitched)
     paths.update(timed("14", phase_entry_points, name, smi))
+    timed("15", phase_graphs, torch, smi)
 
     kernels = kernel_table(merge_res, packed_res, pend_res, rank_res, paths,
                            probes)

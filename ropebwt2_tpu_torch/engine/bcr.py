@@ -21,8 +21,11 @@ The JAX package's module docstring holds the invariants that make the
 start-of-round coordinates exact.  Positions are int64 throughout.  The
 rounds of a batch are a host loop that never waits on the device: no
 value is read back inside a batch.  Rounds of reads of any length run the
-same loop, thousands of them for kilobase reads.  The run tier reads its
-slot count and overflow flag once after each batch.
+same loop, thousands of them for kilobase reads: engine/graph.py's
+runner, which on the card replays the deferred rounds of the flat and the
+packed tier as CUDA graphs (the counterpart of the JAX package's jitted
+batch loop).  The run tier reads its slot count and overflow flag once
+after each batch.
 """
 
 import dataclasses
@@ -42,7 +45,6 @@ from ..index.packed import (
     unpack_bwt,
 )
 from ..index.pending import (
-    empty_pending,
     pending_add,
     pending_cap,
     pending_flush_args,
@@ -133,10 +135,14 @@ def bucket_totals(comm, key, pre):
 
 
 @trace.spanned("plan")
-def plan_round(psize, pcounts, reads: ReadStates, buf, d: int,
-               is_first: bool, rank_fn, *, so, comm=None):
+def plan_round(psize, pcounts, reads: ReadStates, buf, d,
+               is_first, rank_fn, *, so, comm=None):
     """Steps 1-4 and 6 of one round.  ``rank_fn(gpos) -> (M, 6)`` gives
     6-symbol ranks at global positions (the base table, or base + pending).
+    ``d`` is the round (the symbol column), an int or a 0-dim int64 tensor
+    on the device (engine/graph.py, whose CUDA graphs replay a round for
+    every d); ``is_first`` is d == 0, a bool, or None to derive it from d
+    on the device.
 
     ``comm`` carries the few global steps (the bucket sort, the symbol
     fetch, the running counts, the lookups at flagged rows, the boundary
@@ -153,7 +159,6 @@ def plan_round(psize, pcounts, reads: ReadStates, buf, d: int,
         comm = LOCAL
     dev = reads.l.device
     M = reads.l.shape[0]  # this rank's rows
-    arange_m = comm.iota(M, dev)  # the global row index
 
     with trace.span("plan.sort"):
         # ---- 1. stable sort by bucket (mrope.c:303-310) ----
@@ -165,7 +170,11 @@ def plan_round(psize, pcounts, reads: ReadStates, buf, d: int,
 
         # done: the sentinel went in an earlier round (bucket 0); in the first
         # round every real read is active with c == 0 (mrope.c:279-285)
-        inert = dead | ((c == 0) & (not is_first))
+        if is_first is None:
+            later = d != 0
+        else:
+            later = not is_first
+        inert = dead | ((c == 0) & later)
         active = ~inert
 
         # ---- next symbol of each read (reads are stored reversed) ----
@@ -175,6 +184,7 @@ def plan_round(psize, pcounts, reads: ReadStates, buf, d: int,
 
     with trace.span("plan.groups"):
         # ---- 2. groups: runs of equal (inert, bucket, u) ----
+        arange_m = comm.iota(M, dev)  # the global row index
         tkey = c * 2 + inert.long()
         bucket_head = (arange_m == 0) | (tkey != comm.roll1(tkey))
         head = bucket_head | (u != comm.roll1(u))
@@ -291,72 +301,29 @@ def _state_merge(state, pos, sym, stream, valid, n, K):
     return dataclasses.replace(state, bwt=bwt, blk_prefix=blk)
 
 
-def bcr_round(state, reads: ReadStates, buf, d: int, is_first: bool, *, K,
-              so):
-    """One round merged straight into the base (kernel A or C).  Returns
-    (new_state, new_reads)."""
-    new_reads, gX, sym, stream, active, ins_bucket, n_ins = plan_round(
-        state.psize, state.pcounts, reads, buf, d, is_first,
-        _state_rank_fn(state, K), so=so,
-    )
-    with trace.span("flush"):
-        merged = _state_merge(state, gX, sym, stream, active, state.n, K)
-    new_state = dataclasses.replace(
-        merged, n=state.n + n_ins, psize=state.psize + ins_bucket.sum(1),
-        pcounts=state.pcounts + ins_bucket,
-    )
-    return new_state, new_reads
+def _store(into, merged):
+    """``into`` with the buffer and tables of ``merged`` (a merge of it)
+    copied into its own tensors: the fixed addresses that a CUDA graph of
+    a round reads (engine/graph.py)."""
+    for f in dataclasses.fields(into):
+        dst, src = getattr(into, f.name), getattr(merged, f.name)
+        if dst is not src:
+            dst.copy_(src)
+    return into
 
 
 @trace.spanned("flush")
-def _flush_pending(st, pend, *, K):
+def _flush_pending(st, pend, *, K, into=None):
     """Apply the whole pending set to the base in one merge (kernel A, C
-    or the run insertion) and reset the pending index.  st.n/psize/pcounts
-    already hold the virtual totals; only the buffer and its rank tables
-    change."""
+    or the run insertion) and reset the pending index in place.
+    st.n/psize/pcounts already hold the virtual totals; only the buffer
+    and its rank tables change.  ``into``: a state to copy the merged
+    buffer and tables into (_store)."""
     pos, sym, stream, valid = pending_flush_args(pend)
-    return _state_merge(st, pos, sym, stream, valid, st.n - pend.p, K), \
-        reset_pending(pend)
-
-
-def bcr_batch_deferred(state, reads, buf, n_rounds: int, *, K, so, defer_r,
-                       pcap):
-    """All rounds of one batch with the base frozen for ``defer_r`` rounds
-    at a time: each round's insertions merge into the pending index
-    (kernel B), ranks come from base + pending, and the pending set is
-    flushed into the base every defer_r rounds (kernel A or C).  ``pcap``
-    must be >= defer_r * (rows per round)."""
-    pend = empty_pending(pcap, state.n.device)
-    st, rd = state, reads
-    for lo in range(0, n_rounds, defer_r):
-        n, psize, pcounts = st.n, st.psize, st.pcounts
-        for d in range(lo, min(lo + defer_r, n_rounds)):
-            with trace.span("round"):
-                rd, gX, sym, stream, active, ins_bucket, n_ins = plan_round(
-                    psize, pcounts, rd, buf, d, d == 0,
-                    _virtual_rank_fn(st, pend, K), so=so,
-                )
-                pend = pending_add(pend, gX, sym, stream, active)
-                n = n + n_ins
-                psize = psize + ins_bucket.sum(1)
-                pcounts = pcounts + ins_bucket
-        st = dataclasses.replace(st, n=n, psize=psize, pcounts=pcounts)
-        st, pend = _flush_pending(st, pend, K=K)
-    return st, rd
-
-
-def bcr_batch(state, reads, buf, n_rounds: int, *, K, so, defer_r=0,
-              pcap=0):
-    """All rounds of one batch: merged every round, or deferred when
-    defer_r > 0 (bcr_batch_deferred)."""
-    if defer_r > 0:
-        return bcr_batch_deferred(state, reads, buf, n_rounds, K=K, so=so,
-                                  defer_r=defer_r, pcap=pcap)
-    for d in range(n_rounds):
-        with trace.span("round"):
-            state, reads = bcr_round(state, reads, buf, d, d == 0, K=K,
-                                     so=so)
-    return state, reads
+    merged = _state_merge(st, pos, sym, stream, valid, st.n - pend.p, K)
+    if into is not None:
+        merged = _store(into, merged)
+    return merged, reset_pending(pend)
 
 
 def _round_up(x, m):
@@ -429,10 +396,20 @@ class TorchBwt:
     the worst case, and a smaller margin sizes the slots for compressible
     data.  ``runs_rcap`` (ROPEBWT2_TPU_RUNS_RCAP): a fixed slot capacity
     instead.  A batch that outgrows its slots raises RuntimeError after
-    it; the index is then corrupt, and its export raises too."""
+    it; the index is then corrupt, and its export raises too.
+    ``graphs``: on a card, the deferred batches of the flat and the
+    packed tier replay each round as CUDA graphs (engine/graph.py) from
+    the second batch of a configuration on; False runs every round op by
+    op, as the CPU does.  Those batches update the engine's own copy of
+    the index in place: a state read from ``state`` before a batch
+    changes with it (copy its tensors to keep it), and a state assigned
+    to ``state`` is copied at the next batch, never written.  A copy of
+    the engine (copy.copy) shares the index's tensors and gets a runner
+    of its own."""
 
     def __init__(self, so=SO_IO, K=128, defer_r=None, device=None,
-                 pack4="auto", runs=None, runs_margin=2.0, runs_rcap=0):
+                 pack4="auto", runs=None, runs_margin=2.0, runs_rcap=0,
+                 graphs=True):
         if so not in (SO_IO, SO_RLO, SO_RCLO):
             raise ValueError(f"unknown sorting order {so}")
         device = resolve_device(device, "TorchBwt")
@@ -457,6 +434,14 @@ class TorchBwt:
         self._n = 0  # total symbols
         self._n_strings = 0  # total strings (== sentinel count)
         self._defer_cfg = -1 if defer_r is None else defer_r
+        self.graphs = bool(graphs)
+        self._runner = None  # engine/graph.py's, made at the first batch
+
+    def __copy__(self):
+        twin = object.__new__(type(self))
+        twin.__dict__.update(self.__dict__)
+        twin._runner = None
+        return twin
 
     def _choose_defer(self, mpad):
         """(defer_r, pcap) for the next batch.  Auto mode balances the
@@ -665,7 +650,8 @@ class TorchBwt:
 
     def _run_batch(self, buf, starts, total, max_len):
         """Lay out the read states (padding rows first, up to a power of
-        two, as the JAX package does) and run every round of the batch."""
+        two, as the JAX package does) and run every round of the batch on
+        the engine's runner (engine/graph.py)."""
         m = len(starts)
         mpad = _pad_pow2(m)
         npad = mpad - m
@@ -678,15 +664,15 @@ class TorchBwt:
             u[npad:] = l[npad:]
         else:
             u[npad:] = self._n_strings
-        dev = self.device
-        reads = ReadStates(l=torch.from_numpy(l).to(dev),
-                           u=torch.from_numpy(u).to(dev),
-                           pk=torch.from_numpy(pk).to(dev))
         defer_r, pcap = self._choose_defer(mpad)
-        self.state, _ = bcr_batch(
-            self.state, reads, torch.from_numpy(buf).to(dev), max_len + 1,
-            K=self.K, so=self.so, defer_r=defer_r, pcap=pcap,
-        )
+        if self._runner is None:
+            from .graph import Runner
+
+            self._runner = Runner(self.device, self.graphs)
+        run = self._runner
+        self.state = run.bind(self.state, K=self.K, so=self.so, R=defer_r,
+                              pcap=pcap, mpad=mpad, nbuf=buf.shape[0])
+        self.state = run.run(l, u, pk, buf, max_len + 1)
         self._n += total
         self._n_strings += m
         self._post_batch_runs(total)

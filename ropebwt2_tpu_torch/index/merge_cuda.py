@@ -16,7 +16,7 @@ that prefix: a slice, no sum)."""
 import torch
 
 from .. import _build
-from ..utils import trace
+from ..utils import launches, trace
 from .flat import PAD, PAD_TAIL, table_dtype
 from .merge import apply_insertions
 from .rank import build_block_tables, prefix_rows
@@ -24,7 +24,7 @@ from .rank import build_block_tables, prefix_rows
 BS = 4096  # output symbols per CTA (csrc/common.cuh)
 LANE = 128  # symbols per count row
 ROWS = BS // LANE  # count rows per CTA
-LAUNCHES = 0  # kernel launches by this process (CUDA-graph captures not)
+LAUNCHES = 0  # kernel launches by this process (utils/launches.py)
 
 
 def merge(bwt, pos, sym, stream, valid, n, K: int):
@@ -82,7 +82,6 @@ def run_kernel(bwt, insmap, start, n, dtype, tile=None):
     ``merge_blocks``, the kernel's plain version."""
     if bwt.device.type == "cpu":
         return merge_blocks(bwt, insmap, start, n, dtype)
-    global LAUNCHES
     alloc = bwt.shape[0]
     nb = -(-alloc // BS)
     _check_kernel_args(bwt, insmap, start, n, nb, dtype)
@@ -101,9 +100,7 @@ def run_kernel(bwt, insmap, start, n, dtype, tile=None):
         torch.cuda.current_stream(bwt.device).cuda_stream,
     )
     _build.check(rc, "rb2_merge")
-    if not torch.cuda.is_current_stream_capturing():  # a capture launches none
-        LAUNCHES += 1
-        trace.count("launches")
+    launches.launched(globals())
     return out, prefix
 
 

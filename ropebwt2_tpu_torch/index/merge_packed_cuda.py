@@ -11,14 +11,14 @@ raises."""
 import torch
 
 from .. import _build
-from ..utils import trace
+from ..utils import launches, trace
 from .merge_cuda import BS, check_lanes
 from .packed import (
     LANE, PPAD_ROWS, apply_insertions_packed, build_two_level_tables,
     tables_from_plane_counts,
 )
 
-LAUNCHES = 0  # kernel launches by this process (CUDA-graph captures not)
+LAUNCHES = 0  # kernel launches by this process (utils/launches.py)
 
 
 def merge_packed(pbwt, pos, sym, stream, valid, n, K: int = LANE):
@@ -82,7 +82,6 @@ def run_kernel(pbwt, insmap, start, n):
     ``merge_packed`` makes.  out is uint8[alloc], exact up to n +
     start[-1]; rows is int32[nb * 32, 6], the symbol counts of every 128
     output symbols (zero for CTAs wholly past the live prefix)."""
-    global LAUNCHES
     if not pbwt.is_cuda:
         raise ValueError(f"merge_packed: unsupported device {pbwt.device}")
     alloc = pbwt.shape[0]
@@ -99,9 +98,7 @@ def run_kernel(pbwt, insmap, start, n):
         torch.cuda.current_stream(pbwt.device).cuda_stream,
     )
     _build.check(rc, "rb2_merge_packed")
-    if not torch.cuda.is_current_stream_capturing():  # a capture launches none
-        LAUNCHES += 1
-        trace.count("launches")
+    launches.launched(globals())
     return out, rows
 
 

@@ -91,9 +91,11 @@ def empty_pending(pcap: int, device) -> PendingIndex:
 
 
 def reset_pending(pend: PendingIndex) -> PendingIndex:
-    """The empty index of pend's capacity, in pend's own planes: both pairs
-    are refilled with INF/PAD in place, over the blocks a merge since the
-    last reset can have written (all of them when the bound is unknown)."""
+    """The empty index of pend's capacity, in pend's own tensors: both
+    plane pairs are refilled with INF/PAD in place, over the blocks a
+    merge since the last reset can have written (all of them when the
+    bound is unknown), and the count table and p are zeroed in place.
+    Afterwards both pairs are empty, so either may be the next one read."""
     pcap = pend.cap
     hi = pending_cuda.n_blocks(pcap, pend.bound) * pending_cuda.BS
     pairs = [(pend.vp, pend.psym),
@@ -101,11 +103,11 @@ def reset_pending(pend: PendingIndex) -> PendingIndex:
     for vp, psym in pairs:
         vp[:hi].fill_(INF)
         psym[:hi].fill_(PAD)
-    return PendingIndex(
-        vp=pairs[0][0], psym=pairs[0][1],
-        blk_prefix=torch.zeros_like(pend.blk_prefix),
-        p=torch.zeros_like(pend.p), spare=pairs[1], bound=0,
-    )
+    pend.blk_prefix.zero_()
+    pend.p.zero_()
+    return PendingIndex(vp=pairs[0][0], psym=pairs[0][1],
+                        blk_prefix=pend.blk_prefix, p=pend.p,
+                        spare=pairs[1], bound=0)
 
 
 def pending_rank(pend: PendingIndex, g):
@@ -177,8 +179,8 @@ def pending_add(pend: PendingIndex, gX, sym, stream, active) -> PendingIndex:
         vp, psym, rows = pending_cuda.merge(
             pend.vp, pend.psym, varr, sarr, start_new, p_after,
             pend.spare, bound)
-    return PendingIndex(vp=vp, psym=psym,
-                        blk_prefix=prefix_rows(rows, torch.int32), p=p_after,
+        blk_prefix = prefix_rows(rows, torch.int32)
+    return PendingIndex(vp=vp, psym=psym, blk_prefix=blk_prefix, p=p_after,
                         spare=(pend.vp, pend.psym), bound=bound)
 
 

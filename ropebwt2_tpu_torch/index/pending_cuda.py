@@ -17,11 +17,11 @@ of the pending capacity."""
 import torch
 
 from .. import _build
-from ..utils import trace
+from ..utils import launches
 
 BS = 4096  # pending rows per CTA (csrc/common.cuh)
 LANE = 128  # rows per count row (pending.KP)
-LAUNCHES = 0  # kernel launches by this process (CUDA-graph captures not)
+LAUNCHES = 0  # kernel launches by this process (utils/launches.py)
 
 
 def n_blocks(pcap: int, bound=None) -> int:
@@ -81,7 +81,6 @@ def run_kernel(vp, psym, varr, sarr, start_new, p_after, vp_out, psym_out,
     ``merge``'s, checked there."""
     from .pending import INF
 
-    global LAUNCHES
     if ncta == 0:
         return
     rc = _build.lib().rb2_pending_merge(
@@ -91,9 +90,7 @@ def run_kernel(vp, psym, varr, sarr, start_new, p_after, vp_out, psym_out,
         torch.cuda.current_stream(vp.device).cuda_stream,
     )
     _build.check(rc, "rb2_pending_merge")
-    if not torch.cuda.is_current_stream_capturing():  # a capture launches none
-        LAUNCHES += 1
-        trace.count("launches")
+    launches.launched(globals())
 
 
 def _check(vp, psym, varr, sarr, start_new, p_after, out, nb):

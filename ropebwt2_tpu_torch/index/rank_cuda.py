@@ -20,11 +20,11 @@ import torch
 
 from .. import _build
 from ..alphabet import NSYM
-from ..utils import trace
+from ..utils import launches
 
 LANE = 128  # symbols per count row
 MAX_K = 1024  # the kernel's 8-bit per-thread counts hold K / 8 symbols
-# kernel launches by this process (CUDA-graph captures not), per kernel
+# kernel launches by this process, per kernel (utils/launches.py)
 LAUNCHES = {"rank_flat": 0, "rank_packed": 0, "rank_pend": 0,
             "rank_virtual": 0, "rank_virtual_packed": 0}
 I64_MIN, I64_MAX = -(1 << 63), (1 << 63) - 1
@@ -233,6 +233,4 @@ def _launch(name, device, q, fn, *args):
         return
     rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     _build.check(rc, f"rb2_{name}")
-    if not torch.cuda.is_current_stream_capturing():  # a capture launches none
-        LAUNCHES[name] += 1
-        trace.count("launches")
+    launches.launched(LAUNCHES, name)

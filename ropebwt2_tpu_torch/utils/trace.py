@@ -10,8 +10,8 @@
 ``span(name)`` marks a step of the program: a name of ``SPANS``, where a
 dotted name is a step inside the span its prefix names.  ``count(name,
 n)`` adds to a counter (``COUNTERS``) of the innermost open span.  Outside
-``collect()`` both return after one check of a module global: ``span``
-gives one shared no-op context (no profiler range, no clock read, no
+``collect()`` (and ``cutting()``, below) both return after a check of
+module globals: ``span`` gives one shared no-op context (no profiler range, no clock read, no
 allocation), so the timed windows of the benchmark, which never run
 inside ``collect()``, pay nothing measurable.
 
@@ -25,6 +25,11 @@ wait for the card (torch.cuda's sync debug mode, set to "warn" from the
 first span after the card is initialised; a read of a device value, or a
 copy from pageable host memory).  A count outside every span goes to
 ``UNSPANNED``.  A span takes no tensor and reads nothing from the device.
+
+``cutting(hook)`` makes every span call hook(name, True) at its entry and
+hook(name, False) at its exit, inside ``collect()`` or not: the graph
+runner (engine/graph.py) cuts the capture of a round into one CUDA graph
+per span step there.
 
 The ``Trace`` that ``collect()`` yields is a plain dict, filled when the
 block ends: ``{name: {"calls", "host_ms", "host_self_ms", "counters":
@@ -61,6 +66,7 @@ SYNC_WARNING = "called a synchronizing CUDA operation"
 _NAMES = frozenset(SPANS)
 
 _rec = None  # the recorder of the open collect(), or None
+_cut = None  # the hook of the open cutting(), or None
 
 
 class _Noop:
@@ -79,9 +85,26 @@ _NOOP = _Noop()
 def span(name: str):
     """A context that records one call of the step ``name`` inside
     ``collect()``, and does nothing outside it."""
-    if _rec is None:
+    if _rec is None and _cut is None:
         return _NOOP
     return _Span(_rec, name)
+
+
+def collecting() -> bool:
+    """Whether a collect() is open."""
+    return _rec is not None
+
+
+@contextlib.contextmanager
+def cutting(hook):
+    """Within the block, every span calls hook(name, True) at its entry and
+    hook(name, False) at its exit (not at an exit by an exception)."""
+    global _cut
+    prev, _cut = _cut, hook
+    try:
+        yield
+    finally:
+        _cut = prev
 
 
 def spanned(name: str):
@@ -112,7 +135,11 @@ class _Span:
         self.rec, self.name = rec, name
 
     def __enter__(self):
+        if _cut is not None:
+            _cut(self.name, True)
         rec = self.rec
+        if rec is None:
+            return
         if rec.syncs is None:
             rec.find_torch()
         rf = rec.range
@@ -127,8 +154,12 @@ class _Span:
         self.t0 = time.perf_counter_ns()
 
     def __exit__(self, *exc):
-        dt = time.perf_counter_ns() - self.t0
+        if _cut is not None and (not exc or exc[0] is None):
+            _cut(self.name, False)
         rec = self.rec
+        if rec is None:
+            return False
+        dt = time.perf_counter_ns() - self.t0
         up = rec.top = self.up
         if up is not None:
             up.child += dt
